@@ -1,4 +1,4 @@
-"""CLI driver of the PyTorch port — the single-device branch of
+"""Command line of the PyTorch port — the single-device branch of
 gnumap_tpu/cli/main.py, on the device that ``--device`` names.
 
 Usage:

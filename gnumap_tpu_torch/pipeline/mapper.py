@@ -406,7 +406,7 @@ def _window_np(g_codes: np.ndarray, start: int, width: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Streaming driver: map a read stream, accumulate outputs
+# Streaming: map a read stream, accumulate outputs
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
