@@ -60,7 +60,9 @@ def nw_scores_banded_plain(emis_t, cands, lens, genome, *, L, W, slack, boff,
     return out
 
 
-def _check(name, t, dtype, shape, device):
+def check_tensor(name, t, dtype, shape, device):
+    """Raise unless t has the dtype, shape and device a kernel takes and is
+    contiguous."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -95,10 +97,10 @@ def nw_scores_banded(emis_t: torch.Tensor, cands: torch.Tensor,
                          "cuda the kernel)")
     B2, C = cands.shape
     dev = emis_t.device
-    _check("emis_t", emis_t, torch.int32, (B2, 5, L), dev)
-    _check("cands", cands, torch.int32, (B2, C), dev)
-    _check("lens", lens, torch.int32, (B2,), dev)
-    _check("genome", genome, torch.int8, (genome.shape[0],), dev)
+    check_tensor("emis_t", emis_t, torch.int32, (B2, 5, L), dev)
+    check_tensor("cands", cands, torch.int32, (B2, C), dev)
+    check_tensor("lens", lens, torch.int32, (B2,), dev)
+    check_tensor("genome", genome, torch.int8, (genome.shape[0],), dev)
     out = torch.empty((B2, C), dtype=torch.int32, device=dev)
     if B2 == 0 or C == 0:
         return out

@@ -6,7 +6,10 @@ Usage:
         [--device cuda|cpu]
 
 ``--device cuda`` (the default) needs a CUDA card and raises without one;
-``--device cpu`` runs the plain torch versions of the kernels.  Flags of
+``--device cpu`` runs the plain torch versions of the kernels.  The map
+runs the device finish (retention, pure-diagonal detection and traceback
+on the device), as the JAX CLI does on its accelerator; the host finish
+is reached through the API, ``TorchMapper(..., finish_impl="host")``.  Flags of
 paths not yet ported (multi-host, sharded, segmented, FM index, bisulfite,
 device accumulation) raise NotImplementedError.
 """

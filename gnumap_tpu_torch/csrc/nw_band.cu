@@ -12,7 +12,8 @@
 //   * The row's L x 5 emission table is staged in shared memory as rows of 8
 //     (codes 0..4, then DEEP for the poison code 5), so a lane's emission is
 //     one shared load indexed by its window code.
-//   * Diagonal-band state: lane b at read row i scores window column
+//   * Diagonal-band state (the recurrence is in nw_band_row.cuh, shared
+//     with nw_pure.cu): lane b at read row i scores window column
 //     col = i + b - boff.  Each thread keeps two register arrays of BW int32:
 //     D = max(M, Ix, Iy) (the next row's diagonal predecessor, same lane) and
 //     T = max(M - open, Ix - ext) (the next row's Ix source, lane b + 1).
@@ -46,46 +47,11 @@
 // the launch, -1 for an unsupported band width, -2 for bad sizes.  It launches
 // on the given stream, does not synchronise and allocates nothing.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "nw_band_row.cuh"
 
 namespace {
 
-constexpr int NEG_INF = -(1 << 29);
-constexpr int DEEP = -(1 << 30);
-constexpr int SENTINEL = 0x7fffffff;
-constexpr int EROW = 8;          // shared emission row: codes 0..4, DEEP x 3
 constexpr int MAX_THREADS = 128; // candidates per block
-
-// Window code at window index wi (0-based; DP column wi + 1).
-__device__ __forceinline__ unsigned code_at(const int8_t* __restrict__ g,
-                                            long long G, long long ws, int wi,
-                                            int W) {
-  if (wi < 0 || wi >= W) return 5u;
-  const long long p = ws + wi;
-  if (p < 0 || p >= G) return 4u;
-  return (unsigned)__ldg(g + p) & 15u;
-}
-
-// One DP row over the BW band lanes; LAST also latches max(M, Ix).
-template <int BW, bool LAST>
-__device__ __forceinline__ void band_row(int (&D)[BW], int (&T)[BW + 1],
-                                         const unsigned (&P)[(BW + 7) / 8],
-                                         const int32_t* er, int open_q,
-                                         int ext_q, int& fin) {
-  int q = 0;
-#pragma unroll
-  for (int b = 0; b < BW; ++b) {
-    const unsigned code = (P[b >> 3] >> (4 * (b & 7))) & 15u;
-    const int mn = max(er[code] + D[b], NEG_INF);
-    const int ixn = max(T[b + 1], NEG_INF);
-    const int iyn = (b > 0) ? max(q, NEG_INF) : NEG_INF;
-    q = (b > 0) ? max(q - ext_q, mn - open_q) : mn - open_q;
-    D[b] = max(max(mn, ixn), iyn);
-    T[b] = max(mn - open_q, ixn - ext_q);
-    if (LAST) fin = max(fin, max(mn, ixn));
-  }
-}
 
 template <int BW>
 __global__ void __launch_bounds__(MAX_THREADS)
@@ -95,8 +61,6 @@ nw_band_kernel(const int32_t* __restrict__ emis_t,
                const int8_t* __restrict__ genome, long long G,
                int32_t* __restrict__ out, int C, int L, int W, int slack,
                int boff, int open_q, int ext_q) {
-  constexpr int NWD = (BW + 7) / 8;  // packed code words per thread
-  constexpr int TOP = 8 * NWD - 1;   // lane that receives each new code
   extern __shared__ int32_t s_emis[];
   const int row = blockIdx.x;
   const int len = lens[row];
@@ -114,44 +78,25 @@ nw_band_kernel(const int32_t* __restrict__ emis_t,
     *dst = NEG_INF;
     return;
   }
-  // [FROZEN] window rule: ws = floor((cand - slack) / 8) * 8
-  const long long a = (long long)cand - slack;
-  const long long ws = (a >= 0 ? a / 8 : -((-a + 7) / 8)) * 8;
-
-  // row 1: lane b reads window index b - boff
-  unsigned P[NWD];
-#pragma unroll
-  for (int w = 0; w < NWD; ++w) {
-    unsigned x = 0;
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      x |= code_at(genome, G, ws, 8 * w + k - boff, W) << (4 * k);
-    P[w] = x;
-  }
-  // row 0: M = 0 on window columns [0, W], Ix = Iy = NEG_INF; T[BW] is
-  // row 0's column BW - boff, read by row 1's last lane only
+  const long long ws = window_start(cand, slack);
+  unsigned P[(BW + 7) / 8];
   int D[BW], T[BW + 1];
-#pragma unroll
-  for (int b = 0; b <= BW; ++b) {
-    const int col = b - boff;
-    const int m = (col >= 0 && col <= W) ? 0 : NEG_INF;
-    if (b < BW) D[b] = m;
-    T[b] = max(m - open_q, NEG_INF - ext_q);
-  }
-  int fin = NEG_INF;
+  band_init<BW>(D, T, P, genome, G, ws, W, boff, open_q, ext_q);
+  const auto none = [](int, int, int, int) {};
   for (int i = 1; i < len; ++i) {
-    band_row<BW, false>(D, T, P, s_emis + (i - 1) * EROW, open_q, ext_q,
-                        fin);
+    const int32_t* er = s_emis + (i - 1) * EROW;
+    band_row<BW>(D, T, P, [er](unsigned code) { return er[code]; }, open_q,
+                 ext_q, none);
     T[BW] = NEG_INF;  // out of band from row 1 on
-    // slide the window codes one lane down; row i + 1's top lane reads
-    // window index i + TOP - boff
-#pragma unroll
-    for (int w = 0; w + 1 < NWD; ++w)
-      P[w] = __funnelshift_r(P[w], P[w + 1], 4);
-    P[NWD - 1] = (P[NWD - 1] >> 4) |
-                 (code_at(genome, G, ws, i + TOP - boff, W) << 28);
+    band_slide<BW>(P, genome, G, ws, i, boff, W);
   }
-  band_row<BW, true>(D, T, P, s_emis + (len - 1) * EROW, open_q, ext_q, fin);
+  // the score is latched at row len: max over lanes of max(M, Ix), and ix0
+  const int32_t* er = s_emis + (len - 1) * EROW;
+  int fin = NEG_INF;
+  band_row<BW>(D, T, P, [er](unsigned code) { return er[code]; }, open_q,
+               ext_q, [&fin](int, int, int mn, int ixn) {
+                 fin = max(fin, max(mn, ixn));
+               });
   const long long ix0 = -(long long)open_q - (long long)(len - 1) * ext_q;
   *dst = max(fin, (int)(ix0 > NEG_INF ? ix0 : NEG_INF));
 }

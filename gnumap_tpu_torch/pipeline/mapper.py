@@ -1,6 +1,7 @@
 """End-to-end batch mapper in PyTorch — the counterpart of
-gnumap_tpu/pipeline/mapper.py on its host-finish path
-(``TpuMapper(align_impl="pallas", finish_impl="host")``):
+gnumap_tpu/pipeline/mapper.py on its banded CSR paths,
+``TpuMapper(align_impl="pallas")`` with ``finish_impl="device"`` (the
+default) or ``"host"``:
 
   device (torch, one explicit ``device``):
     * unpack reads + PWMs from the (qual, code) table (plain gathers)
@@ -8,15 +9,21 @@ gnumap_tpu/pipeline/mapper.py on its host-finish path
     * seeding: k-mer codes -> CSR gather -> dedupe-cap ([FROZEN v2] votes)
     * banded scoring of every (read-strand, candidate) pair: the CUDA kernel
       csrc/nw_band.cu on a card, its plain torch version on the CPU
-    * one int32 blob [cands | scores | max_sc] per batch back to the host
+    * device finish: exact retention threshold, winner compaction,
+      pure-diagonal detection (csrc/nw_pure.cu) and traceback of the gapped
+      remainder (csrc/nw_tb.cu), indel compaction into one int32 blob
+      (device_tb_tail) — static shapes, no host sync
+    * host finish: one int32 blob [cands | scores | max_sc] per batch
   host (numpy / native C++, copied from the reference because it cannot be
   imported without jax; the golden semantics, kept line for line):
-    * exact retention threshold, traceback of retained loci, dedupe by
-      (strand, pos), posterior weights
+    * device finish: decode the blob (CIGARs, dedupe by (strand, pos),
+      posterior weights); on capacity overflow the batch is re-mapped on
+      the host-finish path, on the same device
+    * host finish: retention threshold, traceback of retained loci, dedupe,
+      posterior weights
     * coverage / SNP-tally scatter, SAM records
 
-Not yet ported (raise): the device-finish tail (pure-diagonal detection and
-traceback kernels), unbanded scoring, bisulfite and FM indexes, device
+Not yet ported (raise): unbanded scoring, bisulfite and FM indexes, device
 accumulation, segments and the multi-host paths.
 """
 
@@ -31,13 +38,13 @@ import numpy as np
 import torch
 
 from gnumap_tpu.align import scoring
-from gnumap_tpu.config import NEG_INF, MapperConfig
+from gnumap_tpu.config import NEG_INF, RATIO_BITS, MapperConfig
 from gnumap_tpu.core import packing, pwm as pwm_mod
 from gnumap_tpu.index.builder import BsIndexPair, CsrIndex, Genome
 from gnumap_tpu.io import sam as sam_io
 from gnumap_tpu.io.fastq import ReadBatch
 from gnumap_tpu.oracle import oracle
-from gnumap_tpu_torch.align import nw_band, nw_ref
+from gnumap_tpu_torch.align import nw_band, nw_pure, nw_ref, nw_tb
 
 SENTINEL = np.iinfo(np.int32).max
 I32 = torch.int32
@@ -253,6 +260,188 @@ def device_state(genome: Genome, index: CsrIndex, cfg: MapperConfig,
             for k, v in arrays.items()}
 
 
+def device_threshold(max_sc, ratio_q: int):
+    """Exact retention threshold ceil(ratio_q * max_sc / 2^RATIO_BITS),
+    equal to MapperConfig.threshold_for: one int64 product (ratio_q <=
+    2^32, |max_sc| < 2^31)."""
+    return ((ratio_q * max_sc.long() + (1 << RATIO_BITS) - 1)
+            >> RATIO_BITS).to(I32)
+
+
+def _compact(mask, n_out: int, values):
+    """dst[k] = values[i] for the k-th set entry i of mask, k < n_out; the
+    other slots keep 0.  Static shapes: a cumsum and one scatter whose
+    dropped entries land in a spare slot."""
+    k = torch.cumsum(mask.to(I32), 0, dtype=I32) - 1
+    slot = torch.where(mask & (k < n_out), k, n_out).long()
+    dst = torch.zeros(n_out + 1, dtype=values.dtype, device=values.device)
+    return dst.scatter_(0, slot, values)[:n_out], k
+
+
+def device_hit_rows(cfg: MapperConfig, cands, valid, scores, max_sc,
+                    emis2_t, lens2, genome) -> dict:
+    """Retention threshold + winner compaction + device traceback: the
+    per-hit rows of the device finish (gnumap_tpu/pipeline/mapper.py
+    device_hit_rows).  emis2_t int32[B2, 5, L] contiguous."""
+    B2, C = cands.shape
+    H = cfg.hit_capacity * B2
+    if B2 * C >= (1 << 21):
+        raise ValueError("flat_idx must fit 21 bits (w0 packing)")
+    if cfg.window_width() >= (1 << 8):
+        raise ValueError("j_final must fit 8 bits (w0 packing): "
+                         "max_read_len <= 223")
+    dev = cands.device
+    thr = device_threshold(max_sc, cfg.ratio_q())
+    keep = (valid & (scores >= thr[:, None]) & (scores > 0)).reshape(-1)
+    flat_idx = torch.arange(B2 * C, dtype=I32, device=dev)
+    hit_flat, k = _compact(keep, H, flat_idx + 1)
+    hit_flat = hit_flat - 1                      # -1 = empty slot
+    n_keep = k[-1] + 1
+    valid_h = hit_flat >= 0
+    safe = torch.where(valid_h, hit_flat, 0).long()
+    row_h = safe // C
+    cand_h = torch.where(valid_h, cands.reshape(-1)[safe], SENTINEL)
+    score_h = torch.where(valid_h, scores.reshape(-1)[safe], 0)
+    len_h = torch.where(valid_h, lens2[row_h], 0)
+    emis_h = emis2_t[row_h]
+    band = cfg.band()
+    open_q, ext_q = cfg.gap_open_q(), cfg.gap_extend_q()
+    kw = dict(L=cfg.max_read_len, W=cfg.window_width(), slack=cfg.gap_slack,
+              open_q=open_q, ext_q=ext_q)
+    split = (band is not None and open_q > 0 and ext_q > 0
+             and os.environ.get("GNUMAP_TB_SPLIT", "1") != "0")
+    if split:
+        # [FROZEN v6] traceback split: prove the all-M hits pure, then run
+        # the traceback only on the compacted gap-bearing remainder
+        pure, jf_pure = nw_pure.nw_pure_banded(
+            emis_h, cand_h, len_h, score_h, genome, boff=band[0],
+            bw=band[1], **kw)
+        need = valid_h & ~pure
+        iota_h = torch.arange(H, dtype=I32, device=dev)
+        src2, kk2 = _compact(need, H, iota_h)
+        live = iota_h < kk2[-1] + 1
+        src2l = src2.long()
+        cand_c = torch.where(live, cand_h[src2l], SENTINEL)
+        len_c = torch.where(live, len_h[src2l], 0)
+        ops_c, jfin_c = nw_tb.nw_traceback(
+            emis2_t[row_h[src2l]], cand_c, len_c, genome, band=band, **kw)
+        tgt2 = torch.where(live, src2, H).long()
+        ops = torch.zeros((H + 1, ops_c.shape[1]), dtype=ops_c.dtype,
+                          device=dev)
+        ops[tgt2] = ops_c
+        jfin_tb = torch.zeros(H + 1, dtype=I32, device=dev)
+        jfin_tb[tgt2] = jfin_c
+        ops, jfin = ops[:H], torch.where(pure, jf_pure, jfin_tb[:H])
+    else:
+        ops, jfin = nw_tb.nw_traceback(emis_h, cand_h, len_h, genome,
+                                       band=band, **kw)
+    n_valid = valid.sum(dtype=I32)
+    return dict(valid_h=valid_h, hit_flat=hit_flat, row_h=row_h,
+                cand_h=cand_h, score_h=score_h, len_h=len_h, ops=ops,
+                jfin=jfin, n_keep=n_keep, n_valid=n_valid)
+
+
+def device_tb_tail(cfg: MapperConfig, cands, valid, scores, max_sc,
+                   emis2_t, lens2, genome) -> torch.Tensor:
+    """Retention threshold + winner compaction + traceback + indel-compacted
+    blob, ONE flat int32 tensor (gnumap_tpu/pipeline/mapper.py
+    device_tb_tail, word for word):
+
+      blob[:4*H]    per-hit meta x H = hit_capacity*B2 rows:
+                      w0 = flat_idx | (j_final << 21)   (-1 = empty slot)
+                      w1 = cand,  w2 = score,  w3 = indel_slot (-1 = none)
+      blob[4*H:-3]  compacted ops of the K = max(64, H // 32) indel-bearing
+                    hits, two uint16 per int32 (overflow -> host fallback)
+      blob[-3:]     [n_keep, n_valid, n_indel]
+    """
+    H = cfg.hit_capacity * cands.shape[0]
+    rows = device_hit_rows(cfg, cands, valid, scores, max_sc, emis2_t,
+                           lens2, genome)
+    valid_h, len_h, ops = rows["valid_h"], rows["len_h"], rows["ops"]
+    Lp = ops.shape[1]
+    K = max(64, H // 32)
+    in_read = (torch.arange(Lp, dtype=I32, device=ops.device)[None, :]
+               < len_h[:, None])
+    has_indel = ((ops != 0) & in_read).any(dim=1) & valid_h
+    src, ki = _compact(has_indel, K,
+                       torch.arange(H, dtype=I32, device=ops.device))
+    n_indel = ki[-1] + 1
+    islot = torch.where(has_indel, ki, -1)
+    ops32 = ops[src.long()].contiguous().view(torch.int32)   # (K, Lp // 2)
+    w0 = torch.where(valid_h, rows["hit_flat"] | (rows["jfin"] << 21), -1)
+    meta = torch.stack([w0, rows["cand_h"], rows["score_h"], islot], dim=1)
+    tail = torch.stack([rows["n_keep"], rows["n_valid"], n_indel])
+    return torch.cat([meta.reshape(-1), ops32.reshape(-1), tail])
+
+
+def tb_blob_len(cfg: MapperConfig, B: int) -> int:
+    """Host-side length of the device_tb_tail blob for a B-read batch."""
+    H = cfg.hit_capacity * 2 * B
+    K = max(64, H // 32)
+    return 4 * H + K * (nw_tb.ops_width(cfg.max_read_len) // 2) + 3
+
+
+def decode_tb_blob(cfg: MapperConfig, B: int, n: int, lens_np, blob):
+    """Decode one device_tb_tail blob into per-read hits.
+
+    B = device batch rows, n = real reads, lens_np = int32[B] read lengths.
+    Returns (out, n_keep, n_valid) or None on capacity overflow (the caller
+    falls back to the host-finish path).  Dedupe by (read, strand, pos)
+    keeps the max score, FIRST in hit order on ties (stable lexsort);
+    weights are normalized over the deduped set in float64; output sorted
+    by (pos, '+' before '-')."""
+    C = cfg.max_candidates
+    H = cfg.hit_capacity * 2 * B
+    K = max(64, H // 32)
+    meta_all = blob[:4 * H].reshape(H, 4)
+    n_keep = int(blob[-3])
+    n_valid = int(blob[-2])
+    n_indel = int(blob[-1])
+    if n_keep > H or n_indel > K:
+        return None
+    meta = meta_all[:n_keep]
+    ops_c = np.ascontiguousarray(
+        blob[4 * H:-3].reshape(K, -1)).view(np.uint16)
+    flat_idx = meta[:, 0] & ((1 << 21) - 1)
+    jfin = (meta[:, 0] >> 21) & 0xFF
+    rows = flat_idx // C
+    b_idx = rows % B
+    minus = (rows >= B).astype(np.int8)
+    pos = cfg.window_start(meta[:, 1]) + jfin
+    lens_h = lens_np[b_idx]
+    islot = meta[:, 3]
+    sc = meta[:, 2]
+    out: List[List[ReadHit]] = [[] for _ in range(n)]
+    real = b_idx < n
+    idx = np.nonzero(real)[0]
+    if len(idx) == 0:
+        return out, n_keep, n_valid
+    order = idx[np.lexsort((-sc[idx], pos[idx], minus[idx], b_idx[idx]))]
+    bo, mo, po = b_idx[order], minus[order], pos[order]
+    first = np.empty(len(order), bool)
+    first[0] = True
+    first[1:] = (bo[1:] != bo[:-1]) | (mo[1:] != mo[:-1]) \
+        | (po[1:] != po[:-1])
+    winners = order[first]
+    totals = np.bincount(b_idx[winners],
+                         weights=sc[winners].astype(np.float64),
+                         minlength=n)
+    # emission order: (read, pos, strand) ascending
+    emit = winners[np.lexsort((minus[winners], pos[winners],
+                               b_idx[winners]))]
+    w_emit = sc[emit].astype(np.float64) / totals[b_idx[emit]]
+    for j, h in enumerate(emit):
+        b = int(b_idx[h])
+        L = int(lens_h[h])
+        if islot[h] >= 0:
+            cigar, rl = nw_tb.decode_ops(ops_c[islot[h]], L)
+        else:
+            cigar, rl = f"{L}M", L
+        out[b].append(ReadHit("-" if minus[h] else "+", int(pos[h]),
+                              int(sc[h]), float(w_emit[j]), cigar, rl))
+    return out, n_keep, n_valid
+
+
 def _require_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -266,12 +455,19 @@ def _require_device(device) -> torch.device:
 class TorchMapper:
     """Device-resident genome/index and the map program on one device.
 
-    The counterpart of ``TpuMapper(..., finish_impl="host")``: the device
-    returns [cands | scores | max_sc] and the host finishes each read."""
+    The counterpart of ``TpuMapper(align_impl="pallas", finish_impl=...)``.
+    ``finish_impl="device"`` (the default, None) retains, tracebacks and
+    compacts on the device and the host decodes one blob;
+    ``finish_impl="host"`` returns [cands | scores | max_sc] and the host
+    finishes each read."""
 
     def __init__(self, genome: Genome, index: CsrIndex, cfg: MapperConfig,
-                 device="cuda"):
+                 device="cuda", finish_impl: Optional[str] = None):
         self.device = _require_device(device)
+        self.finish_impl = "device" if finish_impl is None else finish_impl
+        if self.finish_impl not in ("device", "host"):
+            raise ValueError(f"finish_impl {finish_impl!r}: use 'device' or "
+                             "'host'")
         if isinstance(index, BsIndexPair) or cfg.bisulfite:
             raise NotImplementedError("bisulfite mode (BsIndexPair): not yet "
                                       "ported to gnumap_tpu_torch")
@@ -304,32 +500,49 @@ class TorchMapper:
         return cands, cands != SENTINEL
 
     def _device_map(self, codes, pwm_q, lens):
+        """Scoring of every (read-strand, candidate) pair: (cands, valid,
+        scores, max_sc) plus the emission tables (int32[B2, 5, L],
+        contiguous) and lengths of the read-strands, which the device
+        finish reuses."""
         cfg, st = self.cfg, self.state
         codes2, emis2 = strand_expand(codes, pwm_q, lens, st["S_plus"],
                                       st["S_minus"])
         max_sc = nw_ref.max_read_scores(emis2)
         cands, valid = self._seed(codes2)
         lens2 = torch.cat([lens, lens], dim=0)
+        emis2_t = emis2.transpose(1, 2).contiguous()
         boff, bw = cfg.band()
         scores = nw_band.nw_scores_banded(
-            emis2.transpose(1, 2).contiguous(), cands, lens2, st["g_codes"],
+            emis2_t, cands, lens2, st["g_codes"],
             L=cfg.max_read_len, W=cfg.window_width(), slack=cfg.gap_slack,
             boff=boff, bw=bw, open_q=cfg.gap_open_q(),
             ext_q=cfg.gap_extend_q())
         scores = torch.where(valid, scores, NEG_INF)
-        return cands, valid, scores, max_sc
+        return cands, valid, scores, max_sc, emis2_t, lens2
 
     def _device_map_packed(self, codes, pwm_q, lens):
         """All outputs in ONE int32 blob: [cands | scores | max_sc]."""
-        cands, _, scores, max_sc = self._device_map(codes, pwm_q, lens)
+        cands, _, scores, max_sc, _, _ = self._device_map(codes, pwm_q, lens)
         return torch.cat([cands, scores, max_sc[:, None]], dim=1)
 
-    def _device_map_packed_q(self, packed, lens):
+    def _device_map_tb(self, codes, pwm_q, lens):
+        """Scoring + exact retention + winner compaction + device traceback
+        + indel compaction: ONE flat int32 blob (device_tb_tail)."""
+        return device_tb_tail(self.cfg, *self._device_map(codes, pwm_q, lens),
+                              self.state["g_codes"])
+
+    def _unpack_pwm(self, packed, lens):
         """Quality-derived batches: reads arrive as ONE pack_reads uint8
         array; codes/quals unpack and the PWM builds on the device."""
         codes, quals = device_unpack(packed, self.cfg.max_read_len)
-        pwm_q = device_pwm(codes, quals, lens, self.state["pwm_table"])
-        return self._device_map_packed(codes, pwm_q, lens)
+        return codes, device_pwm(codes, quals, lens,
+                                 self.state["pwm_table"])
+
+    def _device_map_packed_q(self, packed, lens):
+        return self._device_map_packed(*self._unpack_pwm(packed, lens), lens)
+
+    def _device_map_tb_q(self, packed, lens):
+        return self._device_map_tb(*self._unpack_pwm(packed, lens), lens)
 
     @staticmethod
     def unpack_blob(blob, C):
@@ -344,6 +557,17 @@ class TorchMapper:
             t = t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    def _fetch(self, blob: torch.Tensor):
+        """Start the blob's copy back: on a card into pinned memory with
+        non_blocking, and an event marks its end."""
+        if self.device.type != "cuda":
+            return blob, None
+        host = torch.empty(blob.shape, dtype=blob.dtype, pin_memory=True)
+        host.copy_(blob, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
     # ------------------------------------------------------------------
     # Host finishing
     # ------------------------------------------------------------------
@@ -354,24 +578,23 @@ class TorchMapper:
         marks its end, so map_stream overlaps device work with the host
         finish of earlier batches.  Quality-derived batches (pwm_arr None)
         ship quals and rebuild the PWM on the device."""
+        dev = self.finish_impl == "device"
         lens = self._to_device(np.asarray(batch.lens, np.int32))
         if batch.pwm_arr is None:
-            blob = self._device_map_packed_q(
-                self._to_device(pack_reads(batch.codes, batch.quals)), lens)
+            fn = self._device_map_tb_q if dev else self._device_map_packed_q
+            blob = fn(self._to_device(pack_reads(batch.codes, batch.quals)),
+                      lens)
         else:
-            blob = self._device_map_packed(
-                self._to_device(np.asarray(batch.codes, np.int8)),
-                self._to_device(np.asarray(batch.pwm_arr, np.int32)), lens)
-        if self.device.type != "cuda":
-            return blob, None
-        host = torch.empty(blob.shape, dtype=blob.dtype, pin_memory=True)
-        host.copy_(blob, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
+            fn = self._device_map_tb if dev else self._device_map_packed
+            blob = fn(self._to_device(np.asarray(batch.codes, np.int8)),
+                      self._to_device(np.asarray(batch.pwm_arr, np.int32)),
+                      lens)
+        return self._fetch(blob)
 
     def finish(self, batch: ReadBatch, dev_out,
                stats: Optional[BatchStats] = None) -> List[List[ReadHit]]:
+        if self.finish_impl == "device":
+            return self.finish_devtb(batch, dev_out, stats)
         return self.finish_host(batch, dev_out, stats)
 
     def finish_host(self, batch: ReadBatch, dev_out,
@@ -387,9 +610,44 @@ class TorchMapper:
                           self.cfg, batch, *outputs)
         t2 = time.perf_counter()
         if stats is not None:
-            _, valid, _, _ = outputs
-            _update_stats(stats, self.cfg, batch, out, valid,
+            _update_stats(stats, self.cfg, batch, out, int(outputs[1].sum()),
                           t1 - t0, t2 - t1)
+        return out
+
+    def finish_devtb(self, batch: ReadBatch, dev_out,
+                     stats: Optional[BatchStats] = None
+                     ) -> List[List[ReadHit]]:
+        """Decode the device traceback blob: group hits per read, dedupe by
+        (strand, pos), normalize posterior weights.  No DP on the host."""
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        blob, done = dev_out
+        if done is not None:
+            done.synchronize()
+        blob = blob.numpy()
+        t1 = time.perf_counter()
+        B = batch.codes.shape[0]
+        decoded = decode_tb_blob(cfg, B, batch.n, batch.lens, blob)
+        if decoded is None:
+            # capacity overflow (extreme repeat / indel batch): re-map on
+            # the host-finish path, on the same device — exact, just slower
+            # (raise cfg.hit_capacity if this fires on every batch)
+            import logging
+            H = cfg.hit_capacity * 2 * B
+            logging.getLogger(__name__).warning(
+                "device-finish hit-capacity overflow "
+                "(n_keep=%d n_indel=%d, H=%d K=%d): host-path fallback",
+                int(blob[-3]), int(blob[-1]), H, max(64, H // 32))
+            return self.finish_host(batch, self._fetch(
+                self._device_map_packed(
+                    self._to_device(np.asarray(batch.codes, np.int8)),
+                    self._to_device(np.asarray(batch.pwm_q, np.int32)),
+                    self._to_device(np.asarray(batch.lens, np.int32)))),
+                stats)
+        out, _, n_valid = decoded
+        if stats is not None:
+            _update_stats(stats, cfg, batch, out, n_valid, t1 - t0,
+                          time.perf_counter() - t1)
         return out
 
     def map_batch(self, batch: ReadBatch,
@@ -788,7 +1046,6 @@ def host_finish(genome: Genome, S_plus_np, S_minus_np, cfg: MapperConfig,
     n = batch.n
     # vectorized retention over the whole batch (exact integer rational,
     # same as MapperConfig.threshold_for)
-    from gnumap_tpu.config import RATIO_BITS
     thr = (cfg.ratio_q() * max_sc.astype(np.int64)
            + (1 << RATIO_BITS) - 1) >> RATIO_BITS
     keep = valid & (scores >= thr[:, None]) & (scores > 0)
@@ -854,13 +1111,13 @@ def host_finish(genome: Genome, S_plus_np, S_minus_np, cfg: MapperConfig,
 
 
 def _update_stats(stats: BatchStats, cfg: MapperConfig, batch: ReadBatch,
-                  out, valid, device_s: float, host_s: float) -> None:
+                  out, n_valid: int, device_s: float, host_s: float) -> None:
     stats.n_reads += batch.n
     stats.n_mapped += sum(1 for h in out if h)
     stats.n_multi += sum(1 for h in out if len(h) > 1)
-    stats.n_candidates += int(valid.sum())
+    stats.n_candidates += n_valid
     rect, band = _cells_per_cand(cfg)
-    stats.dp_cells += int(valid.sum()) * cfg.max_read_len * rect
-    stats.dp_cells_banded += int(valid.sum()) * cfg.max_read_len * band
+    stats.dp_cells += n_valid * cfg.max_read_len * rect
+    stats.dp_cells_banded += n_valid * cfg.max_read_len * band
     stats.device_s += device_s
     stats.host_s += host_s

@@ -1,8 +1,9 @@
 """The port's mapper and CLI (gnumap_tpu_torch.pipeline / .cli) held to the
 JAX package, exactly: equal ReadHits (strand, pos, score, cigar, weight),
-an equal device blob, and byte-equal golden SAM / SGR / SGREX files.  The
-CPU runs the plain torch versions of the kernels; no test here needs a
-card."""
+an equal device blob, and byte-equal golden SAM / SGR / SGREX files (the
+CLI runs the device finish; the host finish is TorchMapper(...,
+finish_impl="host")).  The CPU runs the plain torch versions of the
+kernels; no test here needs a card."""
 
 import hashlib
 import io
@@ -44,7 +45,8 @@ def phix(small_cfg, phix_genome):
 def test_map_batch_equals_tpu_mapper_jnp(small_cfg, phix, phix_reads):
     gen, idx = phix
     ref = jm.TpuMapper(gen, idx, small_cfg, align_impl="jnp")
-    port = tm.TorchMapper(gen, idx, small_cfg, device="cpu")
+    port = tm.TorchMapper(gen, idx, small_cfg, device="cpu",
+                          finish_impl="host")
     recs = records_from_sim(phix_reads, small_cfg)
     n = 0
     for batch in io_fastq.batch_reads(iter(recs), small_cfg):
@@ -77,7 +79,7 @@ def test_blob_and_hits_equal_pallas_host_finish(phix_genome):
     assert batch.pwm_arr is None
     ref = jm.TpuMapper(gen, idx, cfg, align_impl="pallas",
                        finish_impl="host")
-    port = tm.TorchMapper(gen, idx, cfg, device="cpu")
+    port = tm.TorchMapper(gen, idx, cfg, device="cpu", finish_impl="host")
     want_blob = np.asarray(ref.submit(batch).result())
     got_blob, _ = port.submit(batch)
     assert np.array_equal(got_blob.numpy(), want_blob)
