@@ -1,6 +1,7 @@
 """Exact traceback of retained hits — the counterpart of
-gnumap_tpu/align/nw_pallas.py::nw_traceback_pallas (banded call), plus the
-host decode of its ops rows (``decode_ops``).
+gnumap_tpu/align/nw_pallas.py::nw_traceback_pallas, banded (``band`` =
+MapperConfig.band()) and unbanded (``band=None``, gap_slack >= 14) calls,
+plus the host decode of its ops rows (``decode_ops``).
 
 ``nw_traceback`` is the wrapper of the hand-written CUDA kernel
 csrc/nw_tb.cu (which replaces the Pallas ``_nw_tb_kernel``).  For CPU
@@ -85,10 +86,10 @@ def _at(x, col, fill):
     return torch.where(col >= 0, v, fill)
 
 
-def _traceback_rows(emis, win, lens, *, open_q, ext_q, boff, bw):
+def _traceback_rows(emis, win, lens, *, open_q, ext_q, band):
     """The Pallas body on H live hits: emis int32[H, L, 5], win int64[H, W]
-    window codes, lens int32[H] in [1, L] -> (ops int16[H, L],
-    jfin int32[H])."""
+    window codes, lens int32[H] in [1, L], band (boff, bw) or None ->
+    (ops int16[H, L], jfin int32[H])."""
     H, L, _ = emis.shape
     W = win.shape[1]
     dev = emis.device
@@ -111,13 +112,19 @@ def _traceback_rows(emis, win, lens, *, open_q, ext_q, boff, bw):
                       torch.maximum(m0, ix0))
         m_dir = torch.where(m_sh == diag, 0, torch.where(ix_sh == diag, 1, 2))
         ix_bit = (M - open_q) >= (Ix - ext_q)
-        off = (j < i - boff) | (j > i - boff + bw - 1)
-        M_new = torch.clamp_min(e + diag, NEG_INF).masked_fill(off, NEG_INF)
+        M_new = torch.clamp_min(e + diag, NEG_INF)
         Ix_new = torch.clamp_min(torch.maximum(M - open_q, Ix - ext_q),
-                                 NEG_INF).masked_fill(off, NEG_INF)
+                                 NEG_INF)
+        if band is not None:
+            boff, bw = band
+            off = (j < i - boff) | (j > i - boff + bw - 1)
+            M_new = M_new.masked_fill(off, NEG_INF)
+            Ix_new = Ix_new.masked_fill(off, NEG_INF)
         pm = torch.cummax(M_new + j * ext_q, dim=1).values
         Iy_new = torch.clamp_min(_shift(pm, NEG_INF) - open_q - c * ext_q,
-                                 NEG_INF).masked_fill(off, NEG_INF)
+                                 NEG_INF)
+        if band is not None:
+            Iy_new = Iy_new.masked_fill(off, NEG_INF)
         iy_bit = ((_shift(M_new, NEG_INF) - open_q)
                   >= (_shift(Iy_new, NEG_INF) - ext_q))
         dirs[:, i - 1] = (m_dir | (ix_bit.to(i32) << 2)
@@ -176,7 +183,6 @@ def nw_traceback_plain(emis_t, cands, lens, genome, *, L, W, slack, open_q,
     length in [1, L]) only, ``chunk`` hits at a time to bound the
     (hits, L, W) direction store."""
     H = cands.shape[0]
-    boff, bw = band
     dev = cands.device
     ops = torch.zeros((H, ops_width(L)), dtype=torch.int16, device=dev)
     jfin = torch.zeros(H, dtype=torch.int32, device=dev)
@@ -186,7 +192,7 @@ def nw_traceback_plain(emis_t, cands, lens, genome, *, L, W, slack, open_q,
         h = idx[p0:p0 + chunk]
         win = gather_windows(cands[h], genome, W, slack).long()
         o, jf = _traceback_rows(emis_t[h].transpose(1, 2), win, lens[h],
-                                open_q=open_q, ext_q=ext_q, boff=boff, bw=bw)
+                                open_q=open_q, ext_q=ext_q, band=band)
         ops[h, :L] = o
         jfin[h] = jf
     return ops, jfin
@@ -201,14 +207,11 @@ def nw_traceback(emis_t: torch.Tensor, cands: torch.Tensor,
     cands  int32[H]        candidate anchors (SENTINEL = empty slot)
     lens   int32[H]        true read lengths
     genome int8[G]         base codes (N = 4)
-    band   (boff, bw)      the [FROZEN v4] band (MapperConfig.band)
+    band   (boff, bw)      the [FROZEN v4] band (MapperConfig.band), or
+                           None for the unbanded recurrence
     returns (ops int16[H, Lp], jfin int32[H]), Lp = L rounded up to 8;
     SENTINEL slots and length 0 give zeros."""
-    if band is None:
-        raise NotImplementedError("unbanded traceback (band=None, gap_slack "
-                                  ">= 14): not yet ported to "
-                                  "gnumap_tpu_torch")
-    boff, bw = band
+    boff, bw = band if band is not None else (0, 0)
     kw = dict(L=L, W=W, slack=slack, open_q=open_q, ext_q=ext_q)
     if emis_t.device.type == "cpu":
         return nw_traceback_plain(emis_t, cands, lens, genome, band=band,
@@ -231,14 +234,14 @@ def nw_traceback(emis_t: torch.Tensor, cands: torch.Tensor,
     fn = _build.load("nw_tb").nw_tb_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10
                    + [ctypes.c_void_p])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(emis_t.data_ptr(), cands.data_ptr(), lens.data_ptr(),
                 genome.data_ptr(), genome.shape[0], ops.data_ptr(),
-                jfin.data_ptr(), H, L, Lp, W, slack, boff, bw, open_q, ext_q,
-                stream)
+                jfin.data_ptr(), H, L, Lp, W, slack, int(band is not None),
+                boff, bw, open_q, ext_q, stream)
     if rc == -1:
         raise ValueError(f"nw_tb kernel: window width {W} not built "
                          "(W <= 256)")

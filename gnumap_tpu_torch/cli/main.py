@@ -9,9 +9,10 @@ Usage:
 ``--device cpu`` runs the plain torch versions of the kernels.  The map
 runs the device finish (retention, pure-diagonal detection and traceback
 on the device), as the JAX CLI does on its accelerator; the host finish
-is reached through the API, ``TorchMapper(..., finish_impl="host")``.  Flags of
-paths not yet ported (multi-host, sharded, segmented, FM index, bisulfite,
-device accumulation) raise NotImplementedError.
+is reached through the API, ``TorchMapper(..., finish_impl="host")``.
+``--accumulate device`` keeps coverage and SNP tallies on the device.  Flags
+of paths not yet ported (multi-host, sharded, segmented, FM index,
+bisulfite) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -80,8 +81,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "plain torch versions")
     p.add_argument("--accumulate", choices=["host", "device"],
                    default="host",
-                   help="coverage/SNP-tally accumulation (only host is "
-                        "ported)")
+                   help="coverage/SNP-tally accumulation: 'host' = exact "
+                        "hit-ordered float64 (default, the golden "
+                        "semantics); 'device' = [FROZEN v5.2] on-device f32 "
+                        "accumulation, fetched only at checkpoints and at "
+                        "the end; capacity-overflow batches fall back to "
+                        "the exact host path automatically")
     p.add_argument("--checkpoint", default=None,
                    help="stream-state checkpoint file; resumes if present")
     p.add_argument("--checkpoint-every", type=int, default=16,
@@ -164,11 +169,18 @@ def batch_stream(paths, cfg, adaptor=None):
 
 
 def _not_yet_ported(args) -> None:
-    """Raise for every flag whose path the port does not have yet."""
+    """Raise for every flag whose path the port does not have yet, after
+    the refusals the JAX CLI makes for the same flags."""
+    sharded = args.read_shards or args.index_shards > 1
+    if args.accumulate == "device" and (
+            sharded or (args.segments != "auto" and int(args.segments) > 1)):
+        raise SystemExit("--accumulate device is the single-device "
+                         "TpuMapper path; segmented and sharded runs use "
+                         "host accumulation")
     flags = []
     if args.num_hosts > 1:
         flags.append("--num-hosts > 1")
-    if args.read_shards or args.index_shards > 1:
+    if sharded:
         flags.append("--read-shards / --index-shards")
     if args.segments != "auto" and int(args.segments) > 1:
         flags.append("--segments > 1")
@@ -176,8 +188,6 @@ def _not_yet_ported(args) -> None:
         flags.append("--index-type fm")
     if args.bisulfite:
         flags.append("-b/--bisulfite")
-    if args.accumulate == "device":
-        flags.append("--accumulate device")
     if flags:
         raise NotImplementedError(
             f"{', '.join(flags)}: not yet ported to gnumap_tpu_torch (use "
@@ -216,7 +226,8 @@ def main(argv=None) -> int:
         return 0
 
     t0 = time.perf_counter()
-    m = pl.TorchMapper(genome, index, cfg, device=args.device)
+    m = pl.TorchMapper(genome, index, cfg, device=args.device,
+                       accumulate=args.accumulate)
     t_index += time.perf_counter() - t0
     sam_path = args.output + ".sam"
     sam_f = None

@@ -1,12 +1,14 @@
-// Exact traceback of retained hits: the full-width affine-gap DP with the
-// [FROZEN v3] band mask and 4 direction bits per cell, then the backwalk,
-// on Hopper (sm_90a).  ops[h, i] = (deletions after read base i + 1 << 1)
-// | (1 if that base is an insertion), jfin[h] = the oracle's pos_in_window.
+// Exact traceback of retained hits: the full-width affine-gap DP, with or
+// without the [FROZEN v3] band mask, and 4 direction bits per cell, then the
+// backwalk, on Hopper (sm_90a).  ops[h, i] = (deletions after read base
+// i + 1 << 1) | (1 if that base is an insertion), jfin[h] = the oracle's
+// pos_in_window.
 //
 // Replaces gnumap_tpu/align/nw_pallas.py::_nw_tb_kernel (launched there by
-// nw_traceback_pallas), banded call only.  It keeps the reference's
-// full-width recurrence and every tie rule, so ops and jfin are
-// bit-identical without translating the tie rules into band coordinates:
+// nw_traceback_pallas), banded (banded = 1) and unbanded (banded = 0)
+// calls.  It keeps the reference's full-width recurrence and every tie rule,
+// so ops and jfin are bit-identical without translating the tie rules into
+// band coordinates:
 //   * M's predecessor prefers M, then Ix, then Iy (bits 0..1); Ix-from-M
 //     (bit 2) and Iy-open (bit 3) compare with >=;
 //   * the end cell is the smallest column with M preferred over Ix, and
@@ -15,20 +17,14 @@
 //   * at column 0 every step is an insertion.
 //
 // Design (simple first):
-//   * One warp per hit.  Lane t owns the K = ceil(W / 32) contiguous window
-//     columns c = t K + k (DP column c + 1); columns c >= W read the poison
-//     emission NEG_INF, as the Pallas kernel's lanes >= W do, and never
-//     reach a column < W.
-//   * The left shifts of M, Ix and max(M, Ix, Iy) cross lanes with one
-//     __shfl_up_sync each; the Iy prefix max is a per-lane prefix plus a
-//     5-step warp scan.  Column 0 (M = 0 on row 0, then NEG_INF; Ix the
-//     ramp) is a warp-uniform scalar pair.
-//   * The row's 5 emissions sit in lanes 0..4 (lane 5 holds NEG_INF); a
-//     column's emission is one __shfl_sync from the lane of its window
-//     code.  The next row's emissions are loaded before this row runs.
+//   * One warp per hit, K = ceil(W / 32) contiguous window columns per lane;
+//     the forward row is nw_full_row.cuh's, shared with the unbanded scoring
+//     kernel nw_full.cu.  The next row's emissions are loaded before this
+//     row runs.
 //   * The direction nibbles of a row go to shared memory as one word per
 //     lane (K nibbles): L * 32 * sizeof(word) bytes per hit, 6.5 KB at
-//     L = 104, W = 128.  Warps per block keep a block under 48 KB.
+//     L = 104, W = 128 and 13.3 KB once K >= 5 (W > 128, unbanded).  Warps
+//     per block keep a block under 48 KB (3 warps at K >= 5, L = 104).
 //   * The forward pass stops at the hit's own length: the end row is the
 //     last one computed.  Lane 0 then walks back serially through shared
 //     memory and writes ops and jfin; the other lanes zero the ops rows
@@ -44,11 +40,10 @@
 // the launch, -1 for an unsupported width (W > 256), -2 for bad sizes.  It
 // launches on the given stream, does not synchronise and allocates nothing.
 
-#include "nw_band_row.cuh"
+#include "nw_full_row.cuh"
 
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_WARPS = 4;          // hits per block
 constexpr int SMEM_LIMIT = 48 * 1024; // bytes of direction store per block
 
@@ -66,8 +61,8 @@ nw_tb_kernel(const int32_t* __restrict__ emis_t,
              const int32_t* __restrict__ lens,
              const int8_t* __restrict__ genome, long long G,
              int16_t* __restrict__ ops, int32_t* __restrict__ jfin_out,
-             int H, int L, int Lp, int W, int slack, int boff, int bw,
-             int open_q, int ext_q) {
+             int H, int L, int Lp, int W, int slack, bool banded, int boff,
+             int bw, int open_q, int ext_q) {
   using Dir = typename DirWord<K>::type;
   extern __shared__ unsigned char s_raw[];
   const int lane = threadIdx.x & 31;
@@ -87,102 +82,22 @@ nw_tb_kernel(const int32_t* __restrict__ emis_t,
 
   const long long ws = window_start(cand, slack);
   const int c0 = lane * K;  // first owned window column index
-  unsigned codes = 0;
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    codes |= code_at(genome, G, ws, c0 + k, W) << (4 * k);
-
-  int M[K], Ix[K], Iy[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    M[k] = 0;
-    Ix[k] = NEG_INF;
-    Iy[k] = NEG_INF;
-  }
-  int m0 = 0, ix0 = NEG_INF;  // column 0 of the previous row
+  const unsigned codes = lane_codes<K>(genome, G, ws, c0, W);
+  int M[K], Ix[K], Iy[K], m0, ix0;
+  full_init<K>(M, Ix, Iy, m0, ix0);
   const int32_t* e_h = emis_t + (size_t)h * 5 * L;
   int ev_next = lane < 5 ? e_h[(size_t)lane * L] : NEG_INF;
-
   for (int i = 1; i <= len; ++i) {
     const int ev = ev_next;
     if (i < len && lane < 5) ev_next = e_h[(size_t)lane * L + i];
-    // previous row, shifted one column right (lane 0 reads column 0)
-    const int mL = __shfl_up_sync(FULL, M[K - 1], 1);
-    const int ixL = __shfl_up_sync(FULL, Ix[K - 1], 1);
-    const int iyL = __shfl_up_sync(FULL, Iy[K - 1], 1);
-    const int lo = i - boff, hi = i - boff + bw - 1;  // band of columns
-    int Mn[K], Ixn[K];
-    unsigned dir = 0;
-    int run = 0;  // prefix max of Mn + (c + 1) ext within the lane
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int c = c0 + k;
-      const int j = c + 1;
-      int m_sh, ix_sh, dg;
-      if (k == 0) {
-        m_sh = lane ? mL : m0;
-        ix_sh = lane ? ixL : ix0;
-        dg = lane ? max(max(mL, ixL), iyL) : max(m0, ix0);
-      } else {
-        m_sh = M[k - 1];
-        ix_sh = Ix[k - 1];
-        dg = max(max(M[k - 1], Ix[k - 1]), Iy[k - 1]);
-      }
-      const unsigned m_dir = m_sh == dg ? 0u : (ix_sh == dg ? 1u : 2u);
-      const unsigned ix_bit = (M[k] - open_q) >= (Ix[k] - ext_q) ? 1u : 0u;
-      const int e = __shfl_sync(FULL, ev, (codes >> (4 * k)) & 15u);
-      const bool off = j < lo || j > hi;
-      Mn[k] = off ? NEG_INF : max(e + dg, NEG_INF);
-      Ixn[k] = off ? NEG_INF
-                   : max(max(M[k] - open_q, Ix[k] - ext_q), NEG_INF);
-      const int pk = Mn[k] + j * ext_q;
-      run = k ? max(run, pk) : pk;
-      dir |= (m_dir | (ix_bit << 2)) << (4 * k);
-    }
-    // warp scan of the lanes' prefix maxima -> the prefix before this lane
-    int scan = run;
-#pragma unroll
-    for (int s = 1; s < 32; s <<= 1) {
-      const int y = __shfl_up_sync(FULL, scan, s);
-      if (lane >= s) scan = max(scan, y);
-    }
-    const int before = __shfl_up_sync(FULL, scan, 1);
-    // Iy[c] = max(pm[c - 1] - open - c ext, NEG_INF), pm[-1] = NEG_INF
-    int Iyn[K];
-    int pm = lane ? before : NEG_INF;  // pm of the column left of c0
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int c = c0 + k;
-      const int j = c + 1;
-      const bool off = j < lo || j > hi;
-      Iyn[k] = off ? NEG_INF : max(pm - open_q - c * ext_q, NEG_INF);
-      const int pk = Mn[k] + j * ext_q;
-      pm = max(pm, pk);  // pk > NEG_INF, so lane 0's fill never wins
-    }
-    // Iy-open bit: M[c - 1] - open >= Iy[c - 1] - ext (NEG_INF left of 0)
-    const int mnL = __shfl_up_sync(FULL, Mn[K - 1], 1);
-    const int iynL = __shfl_up_sync(FULL, Iyn[K - 1], 1);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int ml = k ? Mn[k - 1] : (lane ? mnL : NEG_INF);
-      const int il = k ? Iyn[k - 1] : (lane ? iynL : NEG_INF);
-      dir |= ((ml - open_q) >= (il - ext_q) ? 8u : 0u) << (4 * k);
-      M[k] = Mn[k];
-      Ix[k] = Ixn[k];
-      Iy[k] = Iyn[k];
-    }
-    sdir[(size_t)(i - 1) * 32 + lane] = (Dir)dir;
-    ix0 = max(max(m0 - open_q, ix0 - ext_q), NEG_INF);
-    m0 = NEG_INF;
+    sdir[(size_t)(i - 1) * 32 + lane] = (Dir)full_row<K, true>(
+        M, Ix, Iy, m0, ix0, ev, codes, lane, banded, i - boff,
+        i - boff + bw - 1, open_q, ext_q);
   }
 
   // end cell: the smallest column of the best max(M, Ix), M over Ix; the
   // column-0 ramp wins ties
-  int best = INT32_MIN;
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    if (c0 + k < W) best = max(best, max(M[k], Ix[k]));
-  best = __reduce_max_sync(FULL, best);
+  const int best = full_best<K>(M, Ix, c0, W);
   int endc = INT32_MAX;
 #pragma unroll
   for (int k = K - 1; k >= 0; --k)
@@ -233,15 +148,16 @@ template <int K>
 cudaError_t launch(const int32_t* emis_t, const int32_t* cands,
                    const int32_t* lens, const int8_t* genome, long long G,
                    int16_t* ops, int32_t* jfin, int H, int L, int Lp, int W,
-                   int slack, int boff, int bw, int open_q, int ext_q,
-                   cudaStream_t stream) {
+                   int slack, bool banded, int boff, int bw, int open_q,
+                   int ext_q, cudaStream_t stream) {
   const size_t per_warp =
       (size_t)L * 32 * sizeof(typename DirWord<K>::type);
   int warps = (int)(SMEM_LIMIT / per_warp);
   warps = warps < 1 ? 1 : (warps > MAX_WARPS ? MAX_WARPS : warps);
   nw_tb_kernel<K><<<(H + warps - 1) / warps, warps * 32, warps * per_warp,
                     stream>>>(emis_t, cands, lens, genome, G, ops, jfin, H,
-                              L, Lp, W, slack, boff, bw, open_q, ext_q);
+                              L, Lp, W, slack, banded, boff, bw, open_q,
+                              ext_q);
   return cudaGetLastError();
 }
 
@@ -250,8 +166,8 @@ cudaError_t launch(const int32_t* emis_t, const int32_t* cands,
 extern "C" int nw_tb_launch(const void* emis_t, const void* cands,
                             const void* lens, const void* genome,
                             long long G, void* ops, void* jfin, int H, int L,
-                            int Lp, int W, int slack, int boff, int bw,
-                            int open_q, int ext_q, void* stream) {
+                            int Lp, int W, int slack, int banded, int boff,
+                            int bw, int open_q, int ext_q, void* stream) {
   if (H <= 0) return 0;
   if (L <= 0 || Lp < L || W <= 0) return -2;
   if ((size_t)L * 32 * 4 > SMEM_LIMIT) return -2;
@@ -265,8 +181,8 @@ extern "C" int nw_tb_launch(const void* emis_t, const void* cands,
   switch ((W + 31) / 32) {
 #define NW_TB_CASE(N)                                                      \
   case N:                                                                  \
-    return (int)launch<N>(e, cd, ln, g, G, o, j, H, L, Lp, W, slack, boff, \
-                          bw, open_q, ext_q, s);
+    return (int)launch<N>(e, cd, ln, g, G, o, j, H, L, Lp, W, slack,       \
+                          banded != 0, boff, bw, open_q, ext_q, s);
     NW_TB_CASE(1) NW_TB_CASE(2) NW_TB_CASE(3) NW_TB_CASE(4)
     NW_TB_CASE(5) NW_TB_CASE(6) NW_TB_CASE(7) NW_TB_CASE(8)
 #undef NW_TB_CASE

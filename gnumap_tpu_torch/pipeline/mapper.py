@@ -1,18 +1,25 @@
 """End-to-end batch mapper in PyTorch — the counterpart of
-gnumap_tpu/pipeline/mapper.py on its banded CSR paths,
+gnumap_tpu/pipeline/mapper.py on its single-device CSR paths,
 ``TpuMapper(align_impl="pallas")`` with ``finish_impl="device"`` (the
-default) or ``"host"``:
+default) or ``"host"`` and ``accumulate="host"`` (the default) or
+``"device"``:
 
   device (torch, one explicit ``device``):
     * unpack reads + PWMs from the (qual, code) table (plain gathers)
     * both-strand expansion and integer emission tables (int32 multiply-adds)
     * seeding: k-mer codes -> CSR gather -> dedupe-cap ([FROZEN v2] votes)
-    * banded scoring of every (read-strand, candidate) pair: the CUDA kernel
-      csrc/nw_band.cu on a card, its plain torch version on the CPU
+    * scoring of every (read-strand, candidate) pair: banded, the CUDA
+      kernel csrc/nw_band.cu on a card, its plain torch version on the CPU;
+      unbanded when MapperConfig.band() is None (gap_slack >= 14),
+      csrc/nw_full.cu
     * device finish: exact retention threshold, winner compaction,
-      pure-diagonal detection (csrc/nw_pure.cu) and traceback of the gapped
-      remainder (csrc/nw_tb.cu), indel compaction into one int32 blob
+      pure-diagonal detection (csrc/nw_pure.cu, banded only) and traceback
+      of the gapped remainder, or of every retained hit without a band
+      (csrc/nw_tb.cu), indel compaction into one int32 blob
       (device_tb_tail) — static shapes, no host sync
+    * device accumulation: dedupe, posterior weights and span deltas of the
+      retained hits, applied in order to device-resident coverage / tally
+      arrays (device_accumulate, csrc/accum_rmw.cu)
     * host finish: one int32 blob [cands | scores | max_sc] per batch
   host (numpy / native C++, copied from the reference because it cannot be
   imported without jax; the golden semantics, kept line for line):
@@ -23,8 +30,8 @@ default) or ``"host"``:
       posterior weights
     * coverage / SNP-tally scatter, SAM records
 
-Not yet ported (raise): unbanded scoring, bisulfite and FM indexes, device
-accumulation, segments and the multi-host paths.
+Not yet ported (raise): bisulfite and FM indexes, segments and the
+multi-host paths.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ from gnumap_tpu.index.builder import BsIndexPair, CsrIndex, Genome
 from gnumap_tpu.io import sam as sam_io
 from gnumap_tpu.io.fastq import ReadBatch
 from gnumap_tpu.oracle import oracle
-from gnumap_tpu_torch.align import nw_band, nw_pure, nw_ref, nw_tb
+from gnumap_tpu_torch.align import nw_band, nw_full, nw_pure, nw_ref, nw_tb
 
 SENTINEL = np.iinfo(np.int32).max
 I32 = torch.int32
@@ -342,7 +349,7 @@ def device_hit_rows(cfg: MapperConfig, cands, valid, scores, max_sc,
 
 
 def device_tb_tail(cfg: MapperConfig, cands, valid, scores, max_sc,
-                   emis2_t, lens2, genome) -> torch.Tensor:
+                   emis2_t, lens2, genome, rows=None) -> torch.Tensor:
     """Retention threshold + winner compaction + traceback + indel-compacted
     blob, ONE flat int32 tensor (gnumap_tpu/pipeline/mapper.py
     device_tb_tail, word for word):
@@ -353,10 +360,13 @@ def device_tb_tail(cfg: MapperConfig, cands, valid, scores, max_sc,
       blob[4*H:-3]  compacted ops of the K = max(64, H // 32) indel-bearing
                     hits, two uint16 per int32 (overflow -> host fallback)
       blob[-3:]     [n_keep, n_valid, n_indel]
+
+    ``rows``: device_hit_rows' output when the caller already has it.
     """
     H = cfg.hit_capacity * cands.shape[0]
-    rows = device_hit_rows(cfg, cands, valid, scores, max_sc, emis2_t,
-                           lens2, genome)
+    if rows is None:
+        rows = device_hit_rows(cfg, cands, valid, scores, max_sc, emis2_t,
+                               lens2, genome)
     valid_h, len_h, ops = rows["valid_h"], rows["len_h"], rows["ops"]
     Lp = ops.shape[1]
     K = max(64, H // 32)
@@ -379,6 +389,125 @@ def tb_blob_len(cfg: MapperConfig, B: int) -> int:
     H = cfg.hit_capacity * 2 * B
     K = max(64, H // 32)
     return 4 * H + K * (nw_tb.ops_width(cfg.max_read_len) // 2) + 3
+
+
+def acc_span(cfg: MapperConfig) -> int:
+    """Delta-window width for device accumulation: a 128-multiple covering
+    the widest alignment span (bounded by the candidate window) plus one
+    128 block, because span starts are floor-aligned to 128 positions and
+    the pos % 128 residue shifts the delta inside the window."""
+    return ((cfg.window_width() + 127) // 128) * 128 + 128
+
+
+def acc_padded_len(cfg: MapperConfig, G: int) -> int:
+    """Accumulator length: genome + room for every clipped span, rounded
+    to 128."""
+    span = acc_span(cfg)
+    return ((G + 2 * span + 127) // 128) * 128
+
+
+def device_accumulate(cfg: MapperConfig, B: int, pwm2, rows: dict, cov,
+                      tal) -> torch.Tensor:
+    """[FROZEN v5] On-device coverage / SNP-tally accumulation
+    (gnumap_tpu/pipeline/mapper.py device_accumulate).
+
+    Per retained hit: dedupe by (read-strand row, final position) keeping
+    the max score (first in hit order on ties), posterior weight w = score /
+    sum of the read's deduped scores, then
+
+      coverage[pos : pos + ref_len]      += w                       (f32)
+      tallies[genome_idx(read base i)]   += w * PWM[i] / PWM_SCALE  (f32)
+
+    into the device-resident accumulators, in place.  cov is
+    f32[Gpad / 128, 128] (position p at flat p) and tal f32[Gpad * 4 / 128,
+    128] (flat 4p + b) or None; Gpad = acc_padded_len, whose pad absorbs
+    spans clipped at the genome's ends.
+
+    Structure: one composite-key stable sort orders the hits by (read,
+    strand, position, -score, slot); per-read totals and winner counts are
+    integer index_adds (exact, so deterministic on a card); each hit's
+    coverage and tally delta is a dense span-wide window built with
+    elementwise ops and one scatter with unique targets (a read base lands
+    in at most one genome column); the windows, sorted stably by their
+    128-block, go to the ordered read-modify-write kernel (posterior/accum,
+    csrc/accum_rmw.cu).  f32 add order is (128-block, hit slot), as
+    [FROZEN v5.2] fixes it; the reference pre-sums same-block deltas with a
+    tree-ordered scan, because its RMW costs two DMA latencies per delta,
+    so the two agree to f32 rounding.  Nothing here waits for the host.
+
+    Returns stats int32[4] = [n_mapped, n_multi, n_valid, n_keep]."""
+    from gnumap_tpu.config import PWM_SCALE
+    from gnumap_tpu_torch.posterior import accum
+    valid_h, row_h = rows["valid_h"], rows["row_h"]
+    score_h, len_h = rows["score_h"], rows["len_h"]
+    ops, jfin = rows["ops"], rows["jfin"]
+    H = valid_h.shape[0]
+    L = cfg.max_read_len
+    span = acc_span(cfg)
+    Gpad = cov.shape[0] * 128
+    dev = valid_h.device
+    i64 = torch.int64
+    pos_h = (torch.div(rows["cand_h"].long() - cfg.gap_slack, 8,
+                       rounding_mode="floor") * 8 + jfin.long())
+    read_id = row_h.long() % B
+    # dedupe + weights: order (read, strand, pos, -score, slot); row =
+    # read + strand * B, so (read, row) order is (2 read + strand) order
+    key = torch.where(valid_h, ((2 * read_id + row_h.long() // B) << 32)
+                      + pos_h + (1 << 31), torch.iinfo(i64).max)
+    order = torch.sort(-score_h, stable=True).indices
+    order = order[torch.sort(key[order], stable=True).indices]
+    sk = key[order]
+    first = torch.ones(H, dtype=torch.bool, device=dev)
+    first[1:] = sk[1:] != sk[:-1]
+    win = first & valid_h[order]
+    rid = read_id[order]
+    sc = torch.where(win, score_h[order], 0)
+    tot = torch.zeros(B, dtype=i64, device=dev).index_add_(0, rid, sc.long())
+    w_sorted = torch.where(
+        win, sc.float() / torch.clamp_min(tot[rid].float(), 1.0), 0.0)
+    w = torch.empty_like(w_sorted)
+    w[order] = w_sorted
+    n_win = torch.zeros(B, dtype=torch.int32, device=dev).index_add_(
+        0, rid, win.int())
+    stats = torch.stack([(n_win >= 1).sum(dtype=torch.int32),
+                         (n_win >= 2).sum(dtype=torch.int32),
+                         rows["n_valid"].to(torch.int32),
+                         rows["n_keep"].to(torch.int32)])
+    # genome index of read base i = pos + exclusive prefix of
+    # ((1 - is_insertion) + deletions_after) over earlier rows: the
+    # vectorized CIGAR walk of decode_ops
+    opb = (ops[:, :L] & 1).long()
+    in_read = (torch.arange(L, device=dev)[None, :] < len_h[:, None])
+    step = torch.where(in_read, (1 - opb) + (ops[:, :L] >> 1).long(), 0)
+    gidx = pos_h[:, None] + torch.cumsum(step, dim=1) - step
+    ref_len = step.sum(dim=1)
+    # the delta windows in (128-block, slot) order; invalid hits sort last
+    base_units = torch.clamp(pos_h >> 7, 0, (Gpad - span) >> 7)
+    bkey = torch.where(valid_h, base_units, torch.iinfo(i64).max)
+    perm = torch.sort(bkey, stable=True).indices
+    base_s = base_units[perm].to(torch.int32)
+    n_real = valid_h.sum(dtype=torch.int32)
+    s = (pos_h - (base_units << 7))[perm]
+    kk = torch.arange(span, device=dev)[None, :]
+    cov_delta = torch.where((kk >= s[:, None])
+                            & (kk < (s + ref_len[perm])[:, None]),
+                            w[perm][:, None], 0.0)
+    accum.apply_deltas(cov, base_s, cov_delta.reshape(H, span // 128, 128),
+                       n_real, rowmul=1)
+    if tal is not None:
+        val = pwm2[row_h[perm].long()].float() \
+            * (w[perm] * (1.0 / PWM_SCALE))[:, None, None]    # (H, L, 4)
+        col = gidx[perm] - (base_units[perm] << 7)[:, None]
+        ok = ((opb[perm] == 0) & in_read[perm] & (col >= 0) & (col < span))
+        tgt = (torch.arange(H, device=dev)[:, None] * span + col)[ok]
+        tal_delta = torch.zeros((H * span, 4), dtype=torch.float32,
+                                device=dev)
+        tal_delta[tgt] = val[ok]
+        # row-major (span, 4) is the 4p + b lane interleave
+        accum.apply_deltas(tal, base_s,
+                           tal_delta.reshape(H, span // 32, 128), n_real,
+                           rowmul=4)
+    return stats
 
 
 def decode_tb_blob(cfg: MapperConfig, B: int, n: int, lens_np, blob):
@@ -455,28 +584,35 @@ def _require_device(device) -> torch.device:
 class TorchMapper:
     """Device-resident genome/index and the map program on one device.
 
-    The counterpart of ``TpuMapper(align_impl="pallas", finish_impl=...)``.
-    ``finish_impl="device"`` (the default, None) retains, tracebacks and
-    compacts on the device and the host decodes one blob;
-    ``finish_impl="host"`` returns [cands | scores | max_sc] and the host
-    finishes each read."""
+    The counterpart of ``TpuMapper(align_impl="pallas", finish_impl=...,
+    accumulate=...)``.  ``finish_impl="device"`` (the default, None)
+    retains, tracebacks and compacts on the device and the host decodes one
+    blob; ``finish_impl="host"`` returns [cands | scores | max_sc] and the
+    host finishes each read.  ``accumulate="device"`` (device finish only)
+    keeps coverage and SNP tallies on the device (device_accumulate), and
+    map_stream fetches them only at checkpoints and at the end."""
 
     def __init__(self, genome: Genome, index: CsrIndex, cfg: MapperConfig,
-                 device="cuda", finish_impl: Optional[str] = None):
+                 device="cuda", finish_impl: Optional[str] = None,
+                 accumulate: str = "host"):
         self.device = _require_device(device)
         self.finish_impl = "device" if finish_impl is None else finish_impl
         if self.finish_impl not in ("device", "host"):
             raise ValueError(f"finish_impl {finish_impl!r}: use 'device' or "
                              "'host'")
+        if accumulate not in ("host", "device"):
+            raise ValueError(f"accumulate {accumulate!r}: use 'host' or "
+                             "'device'")
+        if accumulate == "device" and self.finish_impl != "device":
+            raise ValueError("accumulate='device' requires "
+                             "finish_impl='device'")
+        self.accumulate = accumulate
         if isinstance(index, BsIndexPair) or cfg.bisulfite:
             raise NotImplementedError("bisulfite mode (BsIndexPair): not yet "
                                       "ported to gnumap_tpu_torch")
         if not isinstance(index, CsrIndex):
             raise NotImplementedError(f"{type(index).__name__} seeding: not "
                                       "yet ported to gnumap_tpu_torch")
-        if cfg.band() is None:
-            raise NotImplementedError("unbanded scoring (gap_slack >= 14): "
-                                      "not yet ported to gnumap_tpu_torch")
         if index.mer_size != cfg.mer_size:
             raise ValueError("index mer_size != cfg.mer_size")
         self.genome = genome
@@ -485,6 +621,8 @@ class TorchMapper:
         S_plus, S_minus = scoring.matrices_for_mode(cfg)
         self.S_plus_np, self.S_minus_np = S_plus, S_minus
         self.state = device_state(genome, index, cfg, self.device)
+        if accumulate == "device":
+            self.reset_accumulators()
 
     # ------------------------------------------------------------------
     # Device program
@@ -511,12 +649,17 @@ class TorchMapper:
         cands, valid = self._seed(codes2)
         lens2 = torch.cat([lens, lens], dim=0)
         emis2_t = emis2.transpose(1, 2).contiguous()
-        boff, bw = cfg.band()
-        scores = nw_band.nw_scores_banded(
-            emis2_t, cands, lens2, st["g_codes"],
-            L=cfg.max_read_len, W=cfg.window_width(), slack=cfg.gap_slack,
-            boff=boff, bw=bw, open_q=cfg.gap_open_q(),
-            ext_q=cfg.gap_extend_q())
+        kw = dict(L=cfg.max_read_len, W=cfg.window_width(),
+                  slack=cfg.gap_slack, open_q=cfg.gap_open_q(),
+                  ext_q=cfg.gap_extend_q())
+        if cfg.band() is None:
+            scores = nw_full.nw_scores_full(emis2_t, cands, lens2,
+                                            st["g_codes"], **kw)
+        else:
+            boff, bw = cfg.band()
+            scores = nw_band.nw_scores_banded(emis2_t, cands, lens2,
+                                              st["g_codes"], boff=boff,
+                                              bw=bw, **kw)
         scores = torch.where(valid, scores, NEG_INF)
         return cands, valid, scores, max_sc, emis2_t, lens2
 
@@ -543,6 +686,165 @@ class TorchMapper:
 
     def _device_map_tb_q(self, packed, lens):
         return self._device_map_tb(*self._unpack_pwm(packed, lens), lens)
+
+    # ------------------------------------------------------------------
+    # [FROZEN v5] device accumulation (see device_accumulate)
+    # ------------------------------------------------------------------
+    def reset_accumulators(self):
+        """(Re)zero the device-resident coverage / tally arrays, padded so
+        that spans clipped at the genome's ends land in the pad."""
+        Gpad = acc_padded_len(self.cfg, len(self.genome.codes))
+        self._cov_dev = torch.zeros((Gpad // 128, 128), dtype=torch.float32,
+                                    device=self.device)
+        self._tal_dev = (torch.zeros((Gpad * 4 // 128, 128),
+                                     dtype=torch.float32, device=self.device)
+                         if self.cfg.snp_mode else None)
+
+    def fetch_accumulators(self):
+        """Device f32 accumulators -> host float64 (the [FROZEN v5] fetch
+        boundary).  Returns (coverage, tallies-or-None)."""
+        G = len(self.genome.codes)
+        cov = self._cov_dev.reshape(-1)[:G].cpu().numpy().astype(np.float64)
+        tal = (self._tal_dev.reshape(-1, 4)[:G].cpu().numpy().astype(
+                   np.float64)
+               if self._tal_dev is not None else None)
+        return cov, tal
+
+    def load_accumulators(self, cov, tal=None):
+        """Resume from checkpointed host arrays (f64 -> f32)."""
+        G = len(self.genome.codes)
+        Gpad = acc_padded_len(self.cfg, G)
+        c = np.zeros((Gpad,), np.float32)
+        c[:G] = np.asarray(cov)[:G]
+        self._cov_dev = torch.from_numpy(c.reshape(-1, 128)).to(self.device)
+        if tal is not None and self.cfg.snp_mode:
+            t = np.zeros((Gpad, 4), np.float32)
+            t[:G] = np.asarray(tal)[:G]
+            self._tal_dev = torch.from_numpy(t.reshape(-1, 128)).to(
+                self.device)
+
+    def _device_map_acc(self, codes, pwm_q, lens):
+        """The map program of the accumulate path: scoring and the device
+        finish, keeping the per-hit rows and the both-strand PWM on the
+        device for _apply_acc.  nvk = [n_valid, n_keep, n_indel] lets
+        finish_acc detect both capacity overflows before any delta is
+        applied."""
+        cfg = self.cfg
+        cands, valid, scores, max_sc, emis2_t, lens2 = self._device_map(
+            codes, pwm_q, lens)
+        _, rc_pwm = revcomp_batch(codes, pwm_q, lens)
+        pwm2 = torch.cat([pwm_q, rc_pwm], dim=0)
+        g = self.state["g_codes"]
+        rows = device_hit_rows(cfg, cands, valid, scores, max_sc, emis2_t,
+                               lens2, g)
+        blob = device_tb_tail(cfg, cands, valid, scores, max_sc, emis2_t,
+                              lens2, g, rows=rows)
+        nvk = torch.stack([rows["n_valid"], rows["n_keep"], blob[-1]])
+        return blob, rows, nvk, pwm2
+
+    def _device_map_acc_q(self, packed, lens):
+        return self._device_map_acc(*self._unpack_pwm(packed, lens), lens)
+
+    def _apply_acc(self, rows, pwm2) -> torch.Tensor:
+        """The accumulate program: [FROZEN v5] dedupe, weights and the
+        ordered RMW into the device accumulators (in place)."""
+        return device_accumulate(self.cfg, pwm2.shape[0] // 2, pwm2, rows,
+                                 self._cov_dev, self._tal_dev)
+
+    def _submit_acc(self, batch: ReadBatch):
+        """[FROZEN v5.1] submit runs ONLY the map program; the accumulate
+        program (_apply_acc) waits for finish_acc, so that capacity
+        overflow is detected before any delta reaches the accumulators, and
+        a checkpoint sees exactly ``batches_done`` batches: a submitted
+        batch in flight has not touched them, and a resume replays it
+        without double counting."""
+        lens = self._to_device(np.asarray(batch.lens, np.int32))
+        if batch.pwm_arr is None:
+            out = self._device_map_acc_q(
+                self._to_device(pack_reads(batch.codes, batch.quals)), lens)
+        else:
+            out = self._device_map_acc(
+                self._to_device(np.asarray(batch.codes, np.int8)),
+                self._to_device(np.asarray(batch.pwm_arr, np.int32)), lens)
+        blob, rows, nvk, pwm2 = out
+        return (rows, pwm2, self._fetch(nvk),
+                self._fetch(blob) if self.cfg.sam_out else None)
+
+    def finish_acc(self, batch: ReadBatch, dev_out,
+                   stats: Optional[BatchStats] = None
+                   ) -> List[List[ReadHit]]:
+        """[FROZEN v5.1] Apply this batch's accumulation (deferred from
+        submit), then decode the blob (SAM on: records only) or read the
+        stats vector (SAM off: the host does nothing else per batch).  A
+        capacity overflow (n_keep > H or n_indel > K) is detected before
+        any delta is applied and goes through _finish_acc_overflow."""
+        cfg = self.cfg
+        B = batch.codes.shape[0]
+        H = cfg.hit_capacity * 2 * B
+        K = max(64, H // 32)
+        rows, pwm2, (nvk, nvk_done), blob_out = dev_out
+        t0 = time.perf_counter()
+        if nvk_done is not None:
+            nvk_done.synchronize()
+        n_valid, n_keep, n_indel = (int(x) for x in nvk.tolist())
+        if n_keep > H or n_indel > K:
+            return self._finish_acc_overflow(batch, n_keep, n_indel,
+                                             n_valid, stats, t0)
+        stvec = self._apply_acc(rows, pwm2)
+        if cfg.sam_out:
+            blob, done = blob_out
+            if done is not None:
+                done.synchronize()
+            t1 = time.perf_counter()
+            out, n_keep, n_valid = decode_tb_blob(
+                cfg, B, batch.n, batch.lens, blob.numpy())   # caps checked
+            n_mapped = sum(1 for hh in out if hh)
+            n_multi = sum(1 for hh in out if len(hh) > 1)
+        else:
+            arr = stvec.cpu().numpy()      # waits for the accumulate program
+            t1 = time.perf_counter()
+            n_mapped, n_multi, n_valid, n_keep = (int(x) for x in arr)
+            out = [[] for _ in range(batch.n)]
+        if stats is not None:
+            _add_stats(stats, cfg, batch.n, n_mapped, n_multi, n_valid,
+                       t1 - t0, time.perf_counter() - t1)
+        return out
+
+    def _finish_acc_overflow(self, batch: ReadBatch, n_keep: int,
+                             n_indel: int, n_valid: int,
+                             stats: Optional[BatchStats], t0: float
+                             ) -> List[List[ReadHit]]:
+        """Capacity-overflow fallback: the batch's deltas were not applied,
+        so it is re-mapped on the exact host-finish path and its float64
+        contributions fold into the device accumulators (fetch -> ordered
+        host scatter -> f32 again).  Raise cfg.hit_capacity if this fires
+        on every batch."""
+        import logging
+        cfg = self.cfg
+        H = cfg.hit_capacity * 2 * batch.codes.shape[0]
+        logging.getLogger(__name__).warning(
+            "device-accumulation capacity overflow (n_keep=%d > H=%d or "
+            "n_indel=%d > K=%d): exact host-path fallback for this batch",
+            n_keep, H, n_indel, max(64, H // 32))
+        out = self.finish_host(batch, self._fetch(self._device_map_packed(
+            self._to_device(np.asarray(batch.codes, np.int8)),
+            self._to_device(np.asarray(batch.pwm_q, np.int32)),
+            self._to_device(np.asarray(batch.lens, np.int32)))), None)
+        t1 = time.perf_counter()
+        cov, tal = self.fetch_accumulators()
+        _scatter_coverage(cov, [(h.pos, h.ref_len, h.weight)
+                                for hits in out for h in hits])
+        if cfg.snp_mode:
+            _scatter_tallies(tal, batch, [
+                (b, h.strand == "-", h.pos, h.weight,
+                 None if h.cigar == f"{int(batch.lens[b])}M" else h.cigar)
+                for b, hits in enumerate(out) for h in hits])
+        self.load_accumulators(cov, tal)
+        if stats is not None:
+            _add_stats(stats, cfg, batch.n, sum(1 for hh in out if hh),
+                       sum(1 for hh in out if len(hh) > 1), n_valid,
+                       t1 - t0, time.perf_counter() - t1)
+        return out
 
     @staticmethod
     def unpack_blob(blob, C):
@@ -578,6 +880,8 @@ class TorchMapper:
         marks its end, so map_stream overlaps device work with the host
         finish of earlier batches.  Quality-derived batches (pwm_arr None)
         ship quals and rebuild the PWM on the device."""
+        if self.accumulate == "device":
+            return self._submit_acc(batch)
         dev = self.finish_impl == "device"
         lens = self._to_device(np.asarray(batch.lens, np.int32))
         if batch.pwm_arr is None:
@@ -593,6 +897,8 @@ class TorchMapper:
 
     def finish(self, batch: ReadBatch, dev_out,
                stats: Optional[BatchStats] = None) -> List[List[ReadHit]]:
+        if self.accumulate == "device":
+            return self.finish_acc(batch, dev_out, stats)
         if self.finish_impl == "device":
             return self.finish_devtb(batch, dev_out, stats)
         return self.finish_host(batch, dev_out, stats)
@@ -687,18 +993,24 @@ def map_stream(mapper: TorchMapper, batches: Iterable[ReadBatch],
     from gnumap_tpu_torch.pipeline import checkpoint as ckpt_mod
     cfg = mapper.cfg
     gen = mapper.genome
+    # [FROZEN v5] device accumulation: coverage / tallies live on the device
+    # and are fetched only at checkpoints and at the end: no host arrays,
+    # no per-batch scatter
+    dev_acc = mapper.accumulate == "device"
     # coverage RSS must not scale with genome length when nothing consumes it
-    need_cov = cfg.sgr_out or cfg.sgrex_out or cfg.snp_mode
+    need_cov = (cfg.sgr_out or cfg.sgrex_out or cfg.snp_mode) and not dev_acc
     coverage = (np.zeros(len(gen.codes), dtype=np.float64)
                 if need_cov else None)
     tallies = (np.zeros((len(gen.codes), 4), dtype=np.float64)
-               if cfg.snp_mode else None)
+               if cfg.snp_mode and not dev_acc else None)
     sam_lines: List[str] = []
     stats = BatchStats()
     start_batch = 0
     if checkpoint_path:
         state = ckpt_mod.load(checkpoint_path)
         if state is not None:
+            if dev_acc:
+                mapper.load_accumulators(state.coverage, state.tallies)
             if state.coverage is not None and coverage is not None:
                 coverage = state.coverage.astype(np.float64).copy()
             if state.tallies is not None and tallies is not None:
@@ -799,8 +1111,11 @@ def map_stream(mapper: TorchMapper, batches: Iterable[ReadBatch],
                 if sam_file is not None:
                     sam_file.flush()
                     off = sam_file.tell()
-                cov_ck = None if coverage is None else coverage.copy()
-                tal_ck = None if tallies is None else tallies.copy()
+                if dev_acc:
+                    cov_ck, tal_ck = mapper.fetch_accumulators()
+                else:
+                    cov_ck = None if coverage is None else coverage.copy()
+                    tal_ck = None if tallies is None else tallies.copy()
                 st_ck = ckpt_mod.StreamState(
                     batch_idx, cov_ck, tal_ck, dataclasses.replace(stats), off)
                 _ck_fut[0] = _ck_pool().submit(
@@ -810,6 +1125,10 @@ def map_stream(mapper: TorchMapper, batches: Iterable[ReadBatch],
         # on-disk state
         if _ck_fut[0] is not None:
             _ck_fut[0].result()
+    if dev_acc:
+        coverage, tallies = mapper.fetch_accumulators()
+        if not (cfg.sgr_out or cfg.sgrex_out or cfg.snp_mode):
+            coverage = None
     return MapResult(coverage, tallies, sam_lines, stats)
 
 
@@ -1112,9 +1431,16 @@ def host_finish(genome: Genome, S_plus_np, S_minus_np, cfg: MapperConfig,
 
 def _update_stats(stats: BatchStats, cfg: MapperConfig, batch: ReadBatch,
                   out, n_valid: int, device_s: float, host_s: float) -> None:
-    stats.n_reads += batch.n
-    stats.n_mapped += sum(1 for h in out if h)
-    stats.n_multi += sum(1 for h in out if len(h) > 1)
+    _add_stats(stats, cfg, batch.n, sum(1 for h in out if h),
+               sum(1 for h in out if len(h) > 1), n_valid, device_s, host_s)
+
+
+def _add_stats(stats: BatchStats, cfg: MapperConfig, n_reads: int,
+               n_mapped: int, n_multi: int, n_valid: int, device_s: float,
+               host_s: float) -> None:
+    stats.n_reads += n_reads
+    stats.n_mapped += n_mapped
+    stats.n_multi += n_multi
     stats.n_candidates += n_valid
     rect, band = _cells_per_cand(cfg)
     stats.dp_cells += n_valid * cfg.max_read_len * rect

@@ -4,10 +4,11 @@ only torch:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Each kernel (B1 nw_band, B2 nw_pure, B3 nw_tb) is held to its plain torch
-version on the same inputs (exact equality), and the mapper on the card to
-the mapper on the CPU, with the device finish and with the host finish
-(equal hits, equal SAM records).
+Each kernel (B1 nw_band, B2 nw_pure, B3 nw_tb banded and unbanded, B4
+nw_full, B5 accum_rmw) is held to its plain torch version on the same
+inputs (exact equality; B5 bit for bit, and again on a repeat launch), and
+the mapper on the card to the mapper on the CPU, with the device finish,
+the host finish and device accumulation.
 """
 
 import numpy as np
@@ -20,8 +21,9 @@ from gnumap_tpu.core import packing, pwm
 from gnumap_tpu.index import builder
 from gnumap_tpu.io import fastq as io_fastq
 from gnumap_tpu.utils import sim
-from gnumap_tpu_torch.align import nw_band, nw_pure, nw_tb
+from gnumap_tpu_torch.align import nw_band, nw_full, nw_pure, nw_tb
 from gnumap_tpu_torch.pipeline import mapper as tm
+from gnumap_tpu_torch.posterior import accum
 
 torch.set_num_threads(1)
 
@@ -121,12 +123,16 @@ def _hits(rng, H, L, G, cfg):
     lens[4] = 0
     args = [torch.from_numpy(np.ascontiguousarray(x)) for x in
             (emis.transpose(0, 2, 1), cands, lens, genome)]
-    boff, bw = cfg.band()
-    scores = nw_band.nw_scores_banded(
-        args[0], args[1][:, None].contiguous(), args[2], args[3], L=L,
-        W=cfg.window_width(), slack=cfg.gap_slack, boff=boff, bw=bw,
-        open_q=cfg.gap_open_q(), ext_q=cfg.gap_extend_q())[:, 0]
-    return args, scores.contiguous()
+    kw = dict(L=L, W=cfg.window_width(), slack=cfg.gap_slack,
+              open_q=cfg.gap_open_q(), ext_q=cfg.gap_extend_q())
+    cands2 = args[1][:, None].contiguous()
+    if cfg.band() is None:
+        scores = nw_full.nw_scores_full(args[0], cands2, *args[2:], **kw)
+    else:
+        boff, bw = cfg.band()
+        scores = nw_band.nw_scores_banded(args[0], cands2, *args[2:],
+                                          boff=boff, bw=bw, **kw)
+    return args, scores[:, 0].contiguous()
 
 
 @pytest.mark.parametrize("slack,harsh", [(8, False), (0, False),
@@ -159,6 +165,119 @@ def test_pure_and_traceback_kernels_match_plain(slack, harsh):
     assert (wops != 0).any(dim=1).sum() > 0
     if not harsh:
         assert wp.sum() > 40
+
+
+@pytest.mark.parametrize("slack,L,harsh", [(16, 48, False), (14, 104, False),
+                                           (30, 104, False), (71, 104, False),
+                                           (16, 48, True)])
+def test_full_kernel_matches_plain(slack, L, harsh):
+    """B4 == its plain version, exactly: length 0 and L, anchors outside
+    the genome, C > 32, window widths from K = 3 to K = 8 columns per lane
+    (W = 254 at gap_slack 71, L = 104), and a harsh scoring."""
+    dev = _card()
+    extra = (dict(mismatch_score=-8.0, gap_open=1.0, gap_extend=0.5)
+             if harsh else {})
+    cfg = MapperConfig(max_read_len=L, gap_slack=slack, **extra)
+    assert cfg.band() is None
+    args = _inputs(np.random.default_rng(slack + L), 96, 40, L, 3000, cfg)
+    kw = dict(L=L, W=cfg.window_width(), slack=slack,
+              open_q=cfg.gap_open_q(), ext_q=cfg.gap_extend_q())
+    n0 = nw_full.LAUNCHES
+    got = nw_full.nw_scores_full(*(a.to(dev) for a in args), **kw)
+    torch.cuda.synchronize()
+    assert nw_full.LAUNCHES == n0 + 1
+    want = nw_full.nw_scores_full(*args, **kw)
+    assert torch.equal(got.cpu(), want)
+    assert (want[0][args[1][0] != nw_band.SENTINEL] == 0).all()
+
+
+@pytest.mark.parametrize("slack,L", [(16, 48), (16, 104), (30, 104)])
+def test_unbanded_traceback_kernel_matches_plain(slack, L):
+    """B3 with band=None == its plain version on ops and jfin, exactly,
+    including K >= 5 columns per lane (13.3 KB of directions per warp)."""
+    dev = _card()
+    cfg = MapperConfig(max_read_len=L, gap_slack=slack)
+    args, _ = _hits(np.random.default_rng(slack + L), 160, L, 3000, cfg)
+    kw = dict(L=L, W=cfg.window_width(), slack=slack,
+              open_q=cfg.gap_open_q(), ext_q=cfg.gap_extend_q(), band=None)
+    n0 = nw_tb.LAUNCHES
+    ops, jf = nw_tb.nw_traceback(*(a.to(dev) for a in args), **kw)
+    torch.cuda.synchronize()
+    assert nw_tb.LAUNCHES == n0 + 1
+    wops, wjf = nw_tb.nw_traceback(*args, **kw)
+    assert torch.equal(ops.cpu(), wops) and torch.equal(jf.cpu(), wjf)
+    assert (wops != 0).any(dim=1).sum() > 0
+
+
+@pytest.mark.parametrize("rowmul,order", [(1, "sorted"), (4, "sorted"),
+                                          (1, "any"), (4, "any")])
+def test_accum_kernel_matches_plain(rowmul, order):
+    """B5 == its serial plain version bit for bit, and a repeat launch on
+    the same inputs gives the same bits: pileups of up to 40 deltas on one
+    block, overlapping neighbouring spans, n_real < H as a device tensor,
+    and span starts in any order (the kernel's serial path)."""
+    dev = _card()
+    rng = np.random.default_rng(rowmul + len(order))
+    H, nrows, R = 3000, 2 * rowmul, 512 * rowmul
+    base = rng.integers(0, R // rowmul - 2, H)
+    base[100:140] = base[99]
+    base[200:240] = base[199] + np.arange(40) % 2
+    if order == "sorted":
+        base = np.sort(base)
+    base = torch.from_numpy(base.astype(np.int32))
+    deltas = torch.from_numpy(
+        (rng.standard_normal((H, nrows, 128))
+         * 2.0 ** rng.integers(-20, 5, (H, nrows, 128))).astype(np.float32))
+    arr = torch.from_numpy(rng.standard_normal((R, 128)).astype(np.float32))
+    n_real = torch.tensor(H - 11, dtype=torch.int32)
+    want = accum.apply_deltas(arr.clone(), base, deltas, n_real,
+                              rowmul=rowmul)
+    on = [x.to(dev) for x in (base, deltas, n_real)]
+    n0 = accum.LAUNCHES
+    got = [accum.apply_deltas(arr.to(dev), *on, rowmul=rowmul).cpu()
+           for _ in range(2)]
+    assert accum.LAUNCHES == n0 + 2
+    for g in got:
+        assert torch.equal(g.view(torch.int32), want.view(torch.int32))
+
+
+def test_device_accumulation_on_card_equals_cpu():
+    """TorchMapper(accumulate="device") on the card: two runs bit-equal,
+    and coverage and tallies within 1e-5 of the CPU's (the same add order;
+    the tolerance covers the two devices' f32 division and sum kernels)."""
+    dev = _card()
+    cfg = MapperConfig(mer_size=10, seed_jump=5, batch_size=256,
+                       max_read_len=104, max_candidates=32, snp_mode=True,
+                       hit_capacity=4)
+    g, spots = sim.random_genome_families(200_000, seed=3, n_families=4,
+                                          copies=6, unit_len=300)
+    gen = builder.Genome.from_contigs([("ref_sim", g)])
+    idx = builder.build_index(gen, cfg)
+    starts = (np.concatenate(spots)[:, None]
+              + np.arange(0, 180, 20)[None, :]).ravel()
+    reads = (sim.simulate_reads(g, 450, 100, seed=4, sub_rate=0.01,
+                                indel_rate=0.1, contig="ref_sim")
+             + sim.simulate_reads(g, 150, 100, seed=5, sub_rate=0.01,
+                                  contig="ref_sim", positions=starts))
+    recs = [io_fastq.ReadRecord(
+        r.name, packing.encode(r.seq), None,
+        (np.frombuffer(r.qual.encode(), np.uint8) - 33).astype(np.int16))
+        for r in reads]
+    out = []
+    for d in (dev, dev, "cpu"):
+        m = tm.TorchMapper(gen, idx, cfg, device=d, accumulate="device")
+        n0 = accum.LAUNCHES
+        res = tm.map_stream(m, io_fastq.batch_reads(iter(recs), cfg),
+                            collect_sam=False)
+        if d == dev:
+            assert accum.LAUNCHES > n0
+        out.append(res)
+    assert np.array_equal(out[0].coverage, out[1].coverage)
+    assert np.array_equal(out[0].tallies, out[1].tallies)
+    for a, b in ((out[0].coverage, out[2].coverage),
+                 (out[0].tallies, out[2].tallies)):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    assert out[0].stats.n_multi == out[2].stats.n_multi > 100
 
 
 @pytest.mark.parametrize("finish_impl", ["device", "host"])

@@ -289,13 +289,19 @@ def test_decode_ops_equals_reference():
 
 
 def test_unported_and_invalid_options_raise(phix_genome):
-    cfg = MapperConfig(max_read_len=16)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        nw_tb.nw_traceback(torch.zeros((1, 5, 16), dtype=torch.int32),
-                           torch.zeros(1, dtype=torch.int32),
-                           torch.ones(1, dtype=torch.int32),
-                           torch.zeros(64, dtype=torch.int8), band=None,
-                           **_kw(cfg))
+    # band=None (unbanded, gap_slack >= 14) is ported: the traceback of a
+    # one-base read equals the oracle's
+    cfg = MapperConfig(max_read_len=16, gap_slack=16)
+    rng = np.random.default_rng(8)
+    genome, emis, cands, lens = _mk_hits(rng, 8, 16, 200, cfg)
+    ops, jf = _port_tb(cfg, genome, emis, cands, lens)
+    assert ops.shape == (8, 16)
+    for h in range(7):
+        sc, pos_w, cigar, ref_len = oracle.nw_align(
+            emis[h, :lens[h]], _window(cfg, genome, cands[h]), cfg,
+            traceback=True)
+        assert (nw_tb.decode_ops(ops[h], int(lens[h])), jf[h]) == \
+            ((cigar, ref_len), pos_w)
     from gnumap_tpu.index import builder
     cfg = MapperConfig(mer_size=8, max_read_len=40)
     gen = builder.Genome.from_contigs([("phiX_sim", phix_genome)])

@@ -16,6 +16,7 @@ import sys
 sys.modules["jax"] = None
 import gnumap_tpu_torch.pipeline.mapper, gnumap_tpu_torch.cli.main
 import gnumap_tpu_torch.pipeline.checkpoint, gnumap_tpu_torch._build
+import gnumap_tpu_torch.align.nw_full, gnumap_tpu_torch.posterior.accum
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert bad == ["jax"], bad

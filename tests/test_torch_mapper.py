@@ -130,11 +130,23 @@ def test_cuda_without_card_raises(small_cfg, phix):
                                    ["--index-type", "fm"], ["-b"],
                                    ["--accumulate", "device"]])
 def test_cli_unported_flags_raise(flags, tmp_path):
+    """Flags of paths not yet ported raise before any output is written.
+    --accumulate device is ported: it runs, and is refused with segments or
+    shards as the JAX CLI refuses it."""
+    argv = ["-g", os.path.join(ROOT, "testdata", "phix_sim.fa"),
+            "-o", str(tmp_path / "x"), "-m", "8", "-L", "40",
+            "--device", "cpu", *flags,
+            os.path.join(ROOT, "testdata", "phix_sim_200.fastq")]
+    if flags == ["--accumulate", "device"]:
+        for extra in (["--segments", "2"], ["-c", "2"]):
+            with pytest.raises(SystemExit, match="single-device"):
+                tcli.main(argv + extra)
+            assert not os.path.exists(tmp_path / "x.sam")
+        assert tcli.main(argv) == 0
+        assert os.path.getsize(tmp_path / "x.sgr") > 0
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tcli.main(["-g", os.path.join(ROOT, "testdata", "phix_sim.fa"),
-                   "-o", str(tmp_path / "x"), "-m", "8", "-L", "40",
-                   "--device", "cpu", *flags,
-                   os.path.join(ROOT, "testdata", "phix_sim_200.fastq")])
+        tcli.main(argv)
     assert not os.path.exists(tmp_path / "x.sam")
 
 
@@ -144,10 +156,20 @@ def test_mapper_unported_configs_raise(phix_genome):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tm.TorchMapper(gen, builder.build_bs_index(gen, cfg_bs), cfg_bs,
                        device="cpu")
-    cfg_wide = MapperConfig(mer_size=8, max_read_len=40, gap_slack=16)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tm.TorchMapper(gen, builder.build_index(gen, cfg_wide), cfg_wide,
-                       device="cpu")
+    # unbanded scoring (gap_slack >= 14) is ported: it maps, and its device
+    # finish gives the host finish's hits
+    cfg_wide = MapperConfig(mer_size=8, max_read_len=40, gap_slack=16,
+                            batch_size=16)
+    assert cfg_wide.band() is None
+    idx = builder.build_index(gen, cfg_wide)
+    reads = sim.simulate_reads(phix_genome, 16, 36, seed=3, sub_rate=0.02,
+                               indel_rate=0.2, contig="phiX_sim")
+    batch = next(io_fastq.batch_reads(
+        iter(records_from_sim(reads, cfg_wide)), cfg_wide))
+    got = tm.TorchMapper(gen, idx, cfg_wide, device="cpu").map_batch(batch)
+    want = tm.TorchMapper(gen, idx, cfg_wide, device="cpu",
+                          finish_impl="host").map_batch(batch)
+    assert _hits(got) == _hits(want) and sum(map(bool, got)) >= 8
 
 
 def test_device_state_loads_saved_index(small_cfg, phix, tmp_path):
