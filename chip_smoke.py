@@ -7,13 +7,18 @@ check the output.
     python3 chip_smoke.py --only device,build,kernel_b2,kernel_b3
 
 Phases, one JSON line each; any failure raises and the exit code is not 0:
-  device     card name and power limit, native host library present
+  device     card name and power limit; the native host library built from
+             gnumap_tpu_torch/native/*.cpp and loaded (fails if it is not)
   build      nvcc of every csrc/*.cu kernel, in parallel; ptxas registers
-             and spills
+             and spills; B1's resident blocks per multiprocessor and the
+             DPX instructions in its SASS (cuobjdump)
   kernel_b1  csrc/nw_band.cu vs its plain torch version on the card at the
              map path's shapes (B2 = 16384 read-strands, C = 32, L = 104,
              band (9, 42)) plus edge rows; a sample vs oracle.nw_align;
-             other band widths; CUDA-event timings
+             other band widths; CUDA-event timings; then six sets of live
+             slots (all, half at random, a sorted prefix of 5-6 per row, one
+             per row, none, mixed lengths with 0, 1, L and L + 1) at band
+             widths 42, 26 and 62: vs plain and the oracle, time, bound
   kernel_b2  csrc/nw_pure.cu vs its plain version on H = 16384 retained-hit
              slots (L = 104, band (9, 42)): reads copied from the genome
              with substitutions and 1-2 bp indels, SENTINEL slots, anchors
@@ -45,16 +50,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              gap_slack=16, ...)) and map_stream: unbanded scoring (B4) and
              the traceback on every retained hit (B3, band=None); device
              and host finish byte-equal, accuracy; B1 and B2 not launched
-  map_acc    the reference's bench config 10 (bench.build_workload): a
+  map_acc    the reference's bench config 10 (build_config10): a
              46,709,983-base genome with 40 x 20 repeat families, 16,384
              reads, SNP mode, SAM on, accumulated on the device twice (bit-
              equal) and on the host once (counts and SAM equal, coverage
              and tallies within 1e-5); then the CLI with --accumulate
              device --snp on 1,024 config-2 reads against --accumulate host
 Each map phase sets every launch count to 0 before its run and fails unless
-the kernels of its path launched.  Then a line with the kernels' JSON, a
-line with nvidia-smi's name and power limit, and as the last line
-{"ok": true, "device": {...}}.
+the kernels of its path launched.  Each kernel is timed on the inputs of its
+path's first call beside its bound: the least time the card could take for
+what those inputs need, the larger of its integer (or float) operations over
+the card's peak rate and its bytes over the memory rate.  Then a line with
+the kernels' JSON, a line with nvidia-smi's name and power limit, and as the
+last line {"ok": true, "device": {...}}.  The "total" line before them gives
+the seconds the whole run took, the builds included.
 
 Without a CUDA card it exits 2 and prints no result.  It reads and writes
 only the repository checkout and a temporary directory.
@@ -110,6 +119,18 @@ OWN_PATH = {"nw_band": "map", "nw_pure": "map", "nw_tb": "map",
 # unbanded configurations of kernel_b4: (gap_slack, MapperConfig extras)
 FULL = ((14, {}), (30, {}),
         (16, dict(mismatch_score=-8.0, gap_open=1.0, gap_extend=0.5)))
+# gap_slack of the live-slot sets of kernel_b1: band widths 42, 26 and 62
+LIVE_SET_SLACKS = (8, 4, 13)
+# The card's published peaks (NVIDIA H100 SXM data sheet): int32 is 64 lanes
+# per multiprocessor per clock, half the 67 TFLOP/s float32 rate.
+INT32_OPS = 16.7e12
+F32_OPS = 67e12
+HBM_BYTES = 3.35e12
+# Integer instructions a DP cell needs (the source notes of the kernels):
+# the band cell's 5 DPX instructions plus 1 for the emission's address; B2
+# adds the gapless sum and a wider address; B3's full-width cell adds one
+# per direction bit.
+CELL_OPS = {"nw_band": 6, "nw_pure": 8, "nw_full": 6, "nw_tb": 10}
 
 
 def emit(phase: str, **kw) -> None:
@@ -141,8 +162,8 @@ def b1_inputs(rng, genome, B2, C, cfg):
     past the genome's end; edge rows of length 0, 1 and L, N bases, and
     all-SENTINEL rows."""
     import numpy as np
-    from gnumap_tpu.align import scoring
-    from gnumap_tpu.core import pwm as pwm_mod
+    from gnumap_tpu_torch.align import scoring
+    from gnumap_tpu_torch.core import pwm as pwm_mod
     from gnumap_tpu_torch.align.nw_band import SENTINEL
     L = cfg.max_read_len
     G = len(genome)
@@ -201,8 +222,8 @@ def check_b1(rng, genome_np, genome_t, B2, C, cfg, n_oracle, reps):
     and vs the oracle on a sample."""
     import numpy as np
     import torch
-    from gnumap_tpu.oracle import oracle
     from gnumap_tpu_torch.align import nw_band
+    from gnumap_tpu_torch.oracle import oracle
     emis_t, cands, lens, emis = b1_inputs(rng, genome_np, B2, C, cfg)
     kern, plain, kw = score_fns(cfg)
     dev = torch.device("cuda")
@@ -233,7 +254,190 @@ def check_b1(rng, genome_np, genome_t, B2, C, cfg, n_oracle, reps):
     if reps:
         out["ms"] = cuda_ms(lambda: kern(*args, **kw), reps)
         out["plain_ms"] = cuda_ms(lambda: plain(*args, **kw), 3)
+        name = "nw_full" if cfg.band() is None else "nw_band"
+        out.update(kernel_bound(name, args, kw), library_ms=None)
+        out["share_of_bound"] = out["bound_ms"] / out["ms"]
     return out
+
+
+def kernel_bound(name, a, kw):
+    """The least time the card could take for what these inputs need: the
+    live work (pairs, hits or deltas that are not SENTINEL or padding), its
+    DP cells times CELL_OPS over the int32 rate (B5: one float add per
+    element), and the bytes it must move (each live input read once, each
+    output written once) over the memory rate; bound_ms is the larger."""
+    import torch
+    from gnumap_tpu_torch.align.nw_band import SENTINEL
+    if name == "accum":
+        arr, base, deltas, n_real = a
+        n = int(n_real)
+        nrows = deltas.shape[1]
+        rows = (base[:n].long()[:, None] * kw["rowmul"]
+                + torch.arange(nrows, device=base.device)).flatten()
+        touched = int(torch.unique(rows[rows < arr.shape[0]]).numel())
+        ops = n * nrows * 128
+        nbytes = n * nrows * 128 * 4 + 4 * n + 2 * touched * 128 * 4
+        ops_ms = ops / F32_OPS * 1e3
+        out = dict(live=n, touched_rows=touched)
+    else:
+        L, W = kw["L"], kw["W"]
+        if name in ("nw_band", "nw_full"):
+            emis_t, cands, lens, _ = a
+            ok = (lens >= (1 if name == "nw_band" else 0)) & (lens <= L)
+            live = (cands != SENTINEL) & ok[:, None]
+            per_row = live.sum(1)
+            n = int(per_row.sum())
+            rows = int((per_row > 0).sum())
+            cells = int((per_row * lens.long()).sum())
+            nbytes = (rows * 5 * L * 4 + 2 * cands.numel() * 4
+                      + lens.numel() * 4 + n * W)
+        else:
+            emis_t, cands, lens = a[:3]
+            live = (cands != SENTINEL) & (lens >= 1) & (lens <= L)
+            if name == "nw_pure":
+                live &= a[3] > 0
+            n = rows = int(live.sum())
+            cells = int(lens[live].long().sum())
+            H = cands.numel()
+            nbytes = rows * 5 * L * 4 + n * W + (
+                H * 17 if name == "nw_pure" else H * (12 + 2 * L))
+        width = kw["bw"] if name in ("nw_band", "nw_pure") else W
+        cells *= width
+        if name == "nw_tb":
+            nbytes += cells // 2              # 4 direction bits per cell
+        ops = cells * CELL_OPS[name]
+        ops_ms = ops / INT32_OPS * 1e3
+        out = dict(live=n, cells=cells)
+    bytes_ms = nbytes / HBM_BYTES * 1e3
+    return dict(out, ops=ops, bytes=nbytes, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def b1_live_sets(rng, genome_np, B2, C, L):
+    """Inputs of the banded kernel that differ in which slots are live and
+    where the SENTINELs sit: (emis int32[B2, L, 5] of full-length reads,
+    {set name: (cands int32[B2, C], lens int32[B2])}).  Every second row is
+    planted: its read copies the genome at p0 = 50 b with 2% substitutions,
+    and column 0 of its candidates is p0."""
+    import numpy as np
+    from gnumap_tpu_torch.align import scoring
+    from gnumap_tpu_torch.align.nw_band import SENTINEL
+    from gnumap_tpu_torch.config import MapperConfig
+    from gnumap_tpu_torch.core import pwm as pwm_mod
+    G = len(genome_np)
+    codes = rng.integers(0, 4, (B2, L)).astype(np.int8)
+    p0 = 50 * np.arange(0, B2, 2)
+    gsl = genome_np[p0[:, None] + np.arange(L)]
+    codes[::2] = np.where(gsl == 4, 0, gsl)
+    sub = rng.random((B2, L)) < 0.02
+    codes = np.where(sub, rng.integers(0, 4, (B2, L)), codes).astype(np.int8)
+    pw = pwm_mod.pwm_rows_from_table(codes, rng.integers(2, 41, (B2, L)))
+    emis = scoring.emission_int(pw, scoring.normal_matrix(
+        MapperConfig(max_read_len=L, max_candidates=C)))
+    full = rng.integers(-L, G + L, (B2, C))
+    full[::2, 0] = 50 * np.arange(0, B2, 2)
+    col = np.arange(C)[None, :]
+    read_len = np.full(B2, L - 4, np.int32)
+
+    def keep(mask, sort):
+        c = np.where(mask, full, SENTINEL)
+        return (np.sort(c, axis=1) if sort else c).astype(np.int32)
+
+    one = rng.integers(0, C, B2)
+    one_c = np.full((B2, C), SENTINEL, np.int64)
+    one_c[np.arange(B2), one] = full[:, 0]
+    mixed = rng.integers(1, L + 1, B2).astype(np.int32)
+    mixed[rng.random(B2) < 0.3] = L - 4
+    edge = rng.random(B2)
+    for k, v in enumerate((0, 1, L, L + 1)):
+        mixed[(edge >= 0.05 * k) & (edge < 0.05 * (k + 1))] = v
+    mixed[:4] = (0, 1, L, L + 1)
+    return emis, {
+        "all_live": (keep(np.ones((B2, C), bool), True), read_len),
+        "half_random": (keep(rng.random((B2, C)) < 0.5, False), read_len),
+        "prefix_5_6": (keep(col < rng.integers(5, 7, B2)[:, None], True),
+                       read_len),
+        "one_per_row": (one_c.astype(np.int32), read_len),
+        "none_live": (keep(np.zeros((B2, C), bool), False), read_len),
+        "mixed_lengths": (keep(rng.random((B2, C)) < 0.5, False), mixed),
+    }
+
+
+def check_b1_live_sets(rng, genome_np, genome_t, B2, C, n_oracle, reps):
+    """B1 on the live-slot sets at each band width of LIVE_SET_SLACKS: 0
+    mismatches against the plain version and an oracle sample; time, bound
+    and share of the bound for each.  One list of results."""
+    import numpy as np
+    import torch
+    from gnumap_tpu_torch.align import nw_band
+    from gnumap_tpu_torch.config import MapperConfig
+    from gnumap_tpu_torch.oracle import oracle
+    L = 104
+    dev = torch.device("cuda")
+    emis_full, sets = b1_live_sets(rng, genome_np, B2, C, L)
+    emis_full_t = torch.from_numpy(np.ascontiguousarray(
+        emis_full.transpose(0, 2, 1))).to(dev)
+    ogen = oracle.OracleGenome(genome_np, [], np.zeros(1), np.zeros(1))
+    results = []
+    for slack in LIVE_SET_SLACKS:
+        cfg = MapperConfig(max_read_len=L, max_candidates=C, gap_slack=slack)
+        kern, plain, kw = score_fns(cfg)
+        W = cfg.window_width()
+        for name, (cands, lens) in sets.items():
+            lens_t = torch.from_numpy(lens).to(dev)
+            # pad rows (at and past a read's length) are zero
+            pad = torch.arange(L, device=dev)[None, :] < lens_t[:, None]
+            args = ((emis_full_t * pad[:, None, :]).contiguous(),
+                    torch.from_numpy(cands).to(dev), lens_t, genome_t)
+            got = kern(*args, **kw)
+            torch.cuda.synchronize()
+            ref = plain(*args, **kw)
+            got_np = got.cpu().numpy()
+            live = np.argwhere((cands != nw_band.SENTINEL)
+                               & ((lens > 0) & (lens <= L))[:, None])
+            dead = (cands == nw_band.SENTINEL) | ~((lens > 0)
+                                                   & (lens <= L))[:, None]
+            pick = (live[rng.choice(len(live), min(n_oracle, len(live)),
+                                    replace=False)] if len(live) else [])
+            o_mism = 0
+            for b, c in pick:
+                window = ogen.window(cfg.window_start(int(cands[b, c])), W)
+                exp = oracle.nw_align(emis_full[b, :lens[b]], window, cfg)
+                o_mism += int(got_np[b, c] != exp)
+            r = dict(set=name, gap_slack=slack, band=cfg.band(), B2=B2, C=C,
+                     L=L, mismatches=int((got != ref).sum()),
+                     max_abs_err=int((got.long() - ref.long()).abs().max()),
+                     dead_not_neg_inf=int((got_np[dead] != -(1 << 29)).sum()),
+                     positive_scores=int((got_np > 0).sum()),
+                     oracle_pairs=len(pick), oracle_mismatches=o_mism,
+                     ms=cuda_ms(lambda: kern(*args, **kw), reps))
+            r.update(kernel_bound("nw_band", args, kw))
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+            results.append(r)
+    return results
+
+
+def sass_summary(so_path, entry):
+    """Opcode counts of one kernel in a built library, from cuobjdump -sass;
+    None when the toolkit has no cuobjdump."""
+    import collections
+    import re
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(exe):
+        return None, ""
+    text = subprocess.run([exe, "-sass", so_path], capture_output=True,
+                          text=True, check=True).stdout
+    counts, inside = collections.Counter(), False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = entry in line
+        elif inside:
+            m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_]+)",
+                         line)
+            if m:
+                counts[m.group(1)] += 1
+    return dict(counts), text
 
 
 def ptxas_summary(log: str) -> dict:
@@ -265,8 +469,8 @@ def tb_inputs(rng, genome, H, cfg):
     each end of the genome (windows partly outside it); a quarter of the
     lengths in [L/2, L].  Returns (emis int32[H, L, 5], cands, lens)."""
     import numpy as np
-    from gnumap_tpu.align import scoring
-    from gnumap_tpu.core import pwm as pwm_mod
+    from gnumap_tpu_torch.align import scoring
+    from gnumap_tpu_torch.core import pwm as pwm_mod
     from gnumap_tpu_torch.align.nw_band import SENTINEL
     L = cfg.max_read_len
     G = len(genome)
@@ -312,8 +516,8 @@ def check_tb_kernels(rng, genome_np, genome_t, H, cfg, n_oracle, reps,
     only B3 runs, with band=None.  Returns {name: result}."""
     import numpy as np
     import torch
-    from gnumap_tpu.oracle import oracle
     from gnumap_tpu_torch.align import nw_band, nw_pure, nw_tb
+    from gnumap_tpu_torch.oracle import oracle
     emis, cands, lens = tb_inputs(rng, genome_np, H, cfg)
     band = cfg.band()
     boff, bw = band if band is not None else (None, None)
@@ -369,6 +573,7 @@ def check_tb_kernels(rng, genome_np, genome_t, H, cfg, n_oracle, reps,
                               reps)
             r["plain_ms"] = cuda_ms(
                 lambda: nw_pure.nw_pure_banded_plain(*args, **bkw), 3)
+            r.update(kernel_bound("nw_pure", args, bkw), library_ms=None)
         out["kernel_b2"] = r
     if "kernel_b3" in which:
         args = (emis_t, cands_t, lens_t, genome_t)
@@ -397,6 +602,7 @@ def check_tb_kernels(rng, genome_np, genome_t, H, cfg, n_oracle, reps,
             r["ms"] = cuda_ms(lambda: nw_tb.nw_traceback(*args, **bkw), reps)
             r["plain_ms"] = cuda_ms(
                 lambda: nw_tb.nw_traceback_plain(*args, **bkw), 3)
+            r.update(kernel_bound("nw_tb", args, bkw), library_ms=None)
         out["kernel_b3"] = r
     return out
 
@@ -427,7 +633,7 @@ def sam_accuracy(sam_path: str):
     """(n_reads, n_mapped, accuracy): a mapped read is correct when its
     truth locus (read name sim_<i>_<contig>_<pos>_<strand>) is among its
     co-best weighted records, within 3 bases, on the right strand."""
-    from gnumap_tpu.utils.sim import parse_truth
+    from gnumap_tpu_torch.utils.sim import parse_truth
     recs = {}
     with open(sam_path) as f:
         for line in f:
@@ -479,7 +685,7 @@ def map_indel(tmp, fa, genome_str, pl):
     """1,024 reads at indel_rate 0.02 mapped three ways: device finish on
     the card, device finish on the CPU, host finish on the card.  n_indel
     sums the indel-bearing hits of the card's device-finish blobs."""
-    from gnumap_tpu.utils import sim
+    from gnumap_tpu_torch.utils import sim
     reads = sim.simulate_reads(genome_str, 1024, READ_LEN, seed=11,
                                sub_rate=0.01, indel_rate=0.02,
                                contig="ref_sim")
@@ -556,7 +762,25 @@ def check_b5(rng, rowmul, order, R, H, reps):
                                                        rowmul=rowmul), reps)
         out["plain_ms"] = cuda_ms(lambda: accum.apply_deltas_plain(
             pbuf, *args, rowmul=rowmul), 1)
+        out.update(kernel_bound("accum", (arr0, *args), dict(rowmul=rowmul)),
+                   library_ms=index_add_ms((arr0, *args), rowmul, reps))
     return out
+
+
+def index_add_ms(a, rowmul, reps):
+    """Time of one Tensor.index_add_ that adds the same delta rows into a
+    copy of the accumulator.  It sums in no fixed order, so its bits differ
+    from B5's from run to run: a time to set beside B5's, not a function the
+    port could call."""
+    import torch
+    arr, base, deltas, n_real = a
+    n, nrows = int(n_real), deltas.shape[1]
+    rows = (base[:n].long()[:, None] * rowmul
+            + torch.arange(nrows, device=base.device)).flatten()
+    ok = rows < arr.shape[0]
+    rows, src = rows[ok], deltas[:n].reshape(-1, 128)[ok]
+    buf = arr.clone()
+    return cuda_ms(lambda: buf.index_add_(0, rows, src), reps)
 
 
 def drive(fn, names, wrappers):
@@ -589,6 +813,7 @@ def main_path_check(name, spy, plain):
         buf, pbuf = a[0].clone(), a[0].clone()
         ms = cuda_ms(lambda: spy.real(buf, *a[1:], **kw), 20)
         pms = cuda_ms(lambda: plain(pbuf, *a[1:], **kw), 1)
+        lib = index_add_ms(a, kw["rowmul"], 20)
     else:
         got, ref = spy.real(*a, **kw), plain(*a, **kw)
         got = got if isinstance(got, tuple) else (got,)
@@ -598,8 +823,11 @@ def main_path_check(name, spy, plain):
                   for g, r in zip(got, ref))
         ms = cuda_ms(lambda: spy.real(*a, **kw), 20)
         pms = cuda_ms(lambda: plain(*a, **kw), 3)
-    return dict(shape=list(a[1].shape), ms=ms, plain_ms=pms,
-                mismatches=mism, max_abs_err=err)
+        lib = None
+    bound = kernel_bound(name, a, kw)
+    return dict(shape=list(a[1].shape), ms=ms, plain_ms=pms, library_ms=lib,
+                mismatches=mism, max_abs_err=err, **bound,
+                share_of_bound=bound["bound_ms"] / ms)
 
 
 def map_unbanded(tmp, fq, fa, pl, wrappers):
@@ -608,9 +836,9 @@ def map_unbanded(tmp, fq, fa, pl, wrappers):
     finish.  Returns (result, launches of the counted run, spies)."""
     import numpy as np
     import torch
-    from gnumap_tpu.config import MapperConfig
-    from gnumap_tpu.index import builder
-    from gnumap_tpu.io import fastq as io_fastq, sgr as sgr_io
+    from gnumap_tpu_torch.config import MapperConfig
+    from gnumap_tpu_torch.index import builder
+    from gnumap_tpu_torch.io import fastq as io_fastq, sgr as sgr_io
     cfg = MapperConfig(mer_size=12, seed_jump=5, max_read_len=104,
                        max_candidates=32, batch_size=8192, gap_slack=16,
                        sam_out=True, sgr_out=True)
@@ -650,6 +878,45 @@ def map_unbanded(tmp, fq, fa, pl, wrappers):
     return res, launches, spies
 
 
+def build_config10():
+    """The reference's bench config 10, "SNP clustered-pileup accumulate
+    A/B": a 46,709,983-base genome (seed 0) with 40 repeat families x 20
+    copies of 300 bp; 16,384 reads of 100 bp at 1% substitutions, 12,288
+    anywhere (seed 7) and 4,096 planted inside repeat copies (seed 9, starts
+    every 25 bases of a copy, the whole read inside the unit, so every copy
+    is a co-best locus); -m 13 -j 5, max_hits 24, 32 candidates, L 104,
+    batches of 8,192, hit_capacity 8, SNP mode.  Returns (cfg, genome,
+    index, read records with lazy PWMs)."""
+    import numpy as np
+    from gnumap_tpu_torch.config import MapperConfig
+    from gnumap_tpu_torch.core import packing
+    from gnumap_tpu_torch.index import builder
+    from gnumap_tpu_torch.io import fastq as io_fastq
+    from gnumap_tpu_torch.utils import sim
+    n_reads, read_len, unit_len = N_READS, READ_LEN, 300
+    cfg = MapperConfig(mer_size=13, seed_jump=5, batch_size=8192,
+                       max_read_len=104, max_candidates=32,
+                       max_hits_per_seed=24, sam_out=False, sgr_out=False,
+                       snp_mode=True, hit_capacity=8)
+    genome, spots = sim.random_genome_families(
+        46_709_983, seed=0, n_families=40, copies=20, unit_len=unit_len)
+    gen = builder.Genome.from_contigs([("ref_sim", genome)])
+    idx = builder.build_index(gen, cfg)
+    n_rep = n_reads // 4
+    starts = (np.concatenate(spots)[:, None]
+              + np.arange(0, unit_len - read_len, 25)[None, :]).ravel()
+    reads = (sim.simulate_reads(genome, n_reads - n_rep, read_len, seed=7,
+                                sub_rate=0.01, contig="ref_sim")
+             + sim.simulate_reads(genome, n_rep, read_len, seed=9,
+                                  sub_rate=0.01, contig="ref_sim",
+                                  positions=starts))
+    recs = [io_fastq.ReadRecord(
+        r.name, packing.encode(r.seq), None,
+        (np.frombuffer(r.qual.encode(), np.uint8).astype(np.int32)
+         - 33).astype(np.int16)) for r in reads]
+    return cfg, gen, idx, recs
+
+
 def map_acc(tmp, fa, reads, pl, wrappers):
     """Bench config 10 accumulated on the device twice and on the host
     once, then the CLI's --accumulate device --snp against --accumulate
@@ -658,11 +925,10 @@ def map_acc(tmp, fa, reads, pl, wrappers):
     import dataclasses
     import numpy as np
     import torch
-    import bench
-    from gnumap_tpu.io import fastq as io_fastq
-    from gnumap_tpu.utils import sim
+    from gnumap_tpu_torch.io import fastq as io_fastq
+    from gnumap_tpu_torch.utils import sim
     t0 = time.perf_counter()
-    cfg, gen, idx, recs = bench.build_workload(None, None, None, config=10)
+    cfg, gen, idx, recs = build_config10()
     cfg = dataclasses.replace(cfg, sam_out=True)
     batches = list(io_fastq.batch_reads(iter(recs), cfg))
     setup_s = time.perf_counter() - t0
@@ -742,8 +1008,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated phases to run")
+    ap.add_argument("--sass-out", default=None,
+                    help="write cuobjdump -sass of the banded kernel's "
+                         "library to this file")
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -751,11 +1021,11 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, ROOT)
     import numpy as np
-    from gnumap_tpu.config import MapperConfig
-    from gnumap_tpu.core import packing
-    from gnumap_tpu.native import lib as native_lib
-    from gnumap_tpu.utils import sim
     from gnumap_tpu_torch import _build
+    from gnumap_tpu_torch.config import MapperConfig
+    from gnumap_tpu_torch.core import packing
+    from gnumap_tpu_torch.native import lib as native_lib
+    from gnumap_tpu_torch.utils import sim
     from gnumap_tpu_torch.align import nw_band, nw_full, nw_pure, nw_tb
     from gnumap_tpu_torch.pipeline import mapper as pl
     from gnumap_tpu_torch.posterior import accum
@@ -765,22 +1035,45 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    if not native_lib.available():
-        raise RuntimeError("native host library unavailable: host_finish "
-                           "would drop to the pure-Python oracle")
-    emit("device", kind=kind, count=torch.cuda.device_count(),
-         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         native_host_lib=True)
-
     # always from the sources: drop any library an earlier run left
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    if not native_lib.available():
+        raise RuntimeError(
+            "native host library did not build or load (host_finish would "
+            "drop to the pure-Python oracle and the host times would mean "
+            "nothing): " + _build.BUILD_LOG.get("gnumap_host", ""))
+    emit("device", kind=kind, count=torch.cuda.device_count(),
+         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+         native_host_lib=True, native_host_lib_path=os.path.relpath(
+             _build.HOST_SO, ROOT), native_build_s=time.perf_counter() - t0)
+
     t0 = time.perf_counter()
     _build.build(_build.sources())
     for name in _build.sources():
         _build.load(name)
-    ptxas = {n: ptxas_summary(log) for n, log in _build.BUILD_LOG.items()}
-    emit("build", seconds=time.perf_counter() - t0, sources=_build.sources(),
-         ptxas=ptxas)
+    ptxas = {n: ptxas_summary(_build.BUILD_LOG[n]) for n in _build.sources()}
+    build_s = time.perf_counter() - t0
+    # B1 at the map path's shape: resident warps per multiprocessor for each
+    # band width, and the opcodes of the bw = 42 kernel
+    resident = {str(bw): 4 * nw_band.resident_blocks(bw, 32, 104)
+                for bw in range(10, 63, 4)}
+    sass, sass_text = sass_summary(
+        os.path.join(_build.BUILD_DIR, "libnw_band.so"), "ILi42E")
+    if args.sass_out and sass_text:
+        os.makedirs(os.path.dirname(os.path.abspath(args.sass_out)),
+                    exist_ok=True)
+        with open(args.sass_out, "w") as f:
+            f.write(sass_text)
+    emit("build", seconds=build_s, sources=_build.sources(), ptxas=ptxas,
+         nw_band_resident_warps_per_sm=resident,
+         nw_band_bw42_sass=None if sass is None else {
+             k: sass.get(k, 0) for k in ("VIADDMNMX", "VIMNMX3", "VIMNMX",
+                                         "IDP", "LDS", "IADD3", "IMAD",
+                                         "LOP3", "SHF", "PRMT", "LDG",
+                                         "STL", "LDL")},
+         nw_band_bw42_sass_total=None if sass is None else sum(
+             sass.values()))
 
     genome_str = sim.random_genome(GENOME_LEN, seed=0)
     genome_np = packing.encode(genome_str)
@@ -797,7 +1090,8 @@ def main(argv=None) -> int:
               "accum": accum.apply_deltas_plain}
     kernels = {n: dict(name=n, route="cuda", source=src, replaces=rep,
                        launches=None, path=OWN_PATH[n], mismatches=0,
-                       max_abs_err=0, ms=None, plain_ms=None)
+                       max_abs_err=0, ms=None, plain_ms=None, bound_ms=None,
+                       bound_by=None, library_ms=None, live=None)
                for n, (src, rep) in KERNELS.items()}
     failures = []
 
@@ -809,8 +1103,9 @@ def main(argv=None) -> int:
             failures.append(f"{what} gap_slack {res.get('gap_slack')}")
 
     def timed(name, res):
-        kernels[name]["ms"], kernels[name]["plain_ms"] = (res["ms"],
-                                                          res["plain_ms"])
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "live"):
+            kernels[name][key] = res[key]
 
     def path_done(path, launches, spies):
         """Per-path launch check; then each spied kernel on the inputs of
@@ -850,6 +1145,14 @@ def main(argv=None) -> int:
         for r in checks:
             record("nw_band", r, "kernel_b1")
         timed("nw_band", res)
+        for r in check_b1_live_sets(rng, genome_np, genome_t, 16_384, 32,
+                                    24, 20):
+            emit("kernel_b1_set", **r)
+            record("nw_band", r, f"kernel_b1 set {r['set']}")
+            if r["dead_not_neg_inf"]:
+                failures.append(f"kernel_b1 set {r['set']} gap_slack "
+                                f"{r['gap_slack']}: a dead slot is not "
+                                "NEG_INF")
 
     if "kernel_b4" in only:
         rng = np.random.default_rng(4)
@@ -1009,6 +1312,7 @@ def main(argv=None) -> int:
     if only != set(PHASES):
         print(json.dumps({"partial": sorted(only)}))
         return 0
+    emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

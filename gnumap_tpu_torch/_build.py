@@ -1,10 +1,15 @@
-"""Kernel loader: ``csrc/<name>.cu`` -> ``_build/lib<name>.so`` -> ctypes.
+"""Loader of the package's native code, built into ``_build/`` at first use.
 
-Each source has a plain C interface (pointers and the CUDA stream passed as
-``void*``), so ``nvcc`` compiles it in seconds without PyTorch's headers.
-A library is built on first use and rebuilt when a source in ``csrc/`` is
-newer than it; nothing is built at import time.  A missing ``nvcc`` or a
-failed build raises: there is no fallback.
+Kernels: ``csrc/<name>.cu`` -> ``_build/lib<name>.so`` -> ctypes.  Each source
+has a plain C interface (pointers and the CUDA stream passed as ``void*``),
+so ``nvcc`` compiles it in seconds without PyTorch's headers.  A library is
+built on first use and rebuilt when a source in ``csrc/`` is newer than it;
+nothing is built at import time.  A missing ``nvcc`` or a failed build
+raises: there is no fallback.
+
+Host library: ``native/*.cpp`` -> ``_build/libgnumap_host.so`` with the host
+C++ compiler (``build_host``).  It is host code with a Python fallback in
+``native/lib.py``, so a missing compiler returns None there, not an error.
 """
 
 from __future__ import annotations
@@ -18,7 +23,12 @@ from typing import Dict, Iterable
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
+NATIVE = os.path.join(_DIR, "native")
 BUILD_DIR = os.path.join(_DIR, "_build")
+HOST_SO = os.path.join(BUILD_DIR, "libgnumap_host.so")
+# -ffp-contract=off: the float64 scatters must round as the NumPy paths do
+CXX_FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-fPIC", "-shared",
+             "-std=c++17", "-Wall")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -92,6 +102,38 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_paths(name)[1])
             _libs[name] = lib
         return lib
+
+
+def _host_sources() -> list:
+    return sorted(os.path.join(NATIVE, f) for f in os.listdir(NATIVE)
+                  if f.endswith(".cpp"))
+
+
+def build_host():
+    """Path of the host library, compiled from ``native/*.cpp`` when it is
+    missing or older than a source; None without a C++ compiler or when the
+    build fails (``BUILD_LOG["gnumap_host"]`` keeps the compiler's output)."""
+    srcs = _host_sources()
+    if (os.path.exists(HOST_SO) and os.path.getmtime(HOST_SO)
+            >= max(os.path.getmtime(s) for s in srcs)):
+        return HOST_SO
+    exe = (shutil.which(os.environ.get("CXX", "g++")) or shutil.which("c++"))
+    if exe is None:
+        BUILD_LOG["gnumap_host"] = "no C++ compiler ($CXX, g++, c++)"
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{HOST_SO}.{os.getpid()}.tmp"
+    try:
+        r = subprocess.run([exe, *CXX_FLAGS, "-o", tmp, *srcs, "-lpthread"],
+                           capture_output=True, text=True, timeout=600)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        BUILD_LOG["gnumap_host"] = repr(e)
+        return None
+    BUILD_LOG["gnumap_host"] = r.stdout + r.stderr
+    if r.returncode != 0:
+        return None
+    os.replace(tmp, HOST_SO)
+    return HOST_SO
 
 
 def sources() -> list:

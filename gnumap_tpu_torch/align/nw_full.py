@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from gnumap_tpu.config import NEG_INF
+from gnumap_tpu_torch.config import NEG_INF
 from gnumap_tpu_torch.align import nw_ref
 from gnumap_tpu_torch.align.nw_band import SENTINEL, check_tensor, \
     gather_windows

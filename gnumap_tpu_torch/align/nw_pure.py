@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from gnumap_tpu.config import NEG_INF
+from gnumap_tpu_torch.config import NEG_INF
 from gnumap_tpu_torch.align.nw_band import SENTINEL, check_tensor
 
 DEEP = -(1 << 30)   # emission poison outside window columns [1, W]

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from gnumap_tpu.config import NEG_INF
+from gnumap_tpu_torch.config import NEG_INF
 
 
 def nw_scores(emis: torch.Tensor, windows: torch.Tensor, lens: torch.Tensor,

@@ -24,9 +24,9 @@ import os
 import sys
 import time
 
-from gnumap_tpu.config import MapperConfig
-from gnumap_tpu.index import builder, store
-from gnumap_tpu.io import fastq as io_fastq, sam as sam_io, sgr as sgr_io
+from gnumap_tpu_torch.config import MapperConfig
+from gnumap_tpu_torch.index import builder, store
+from gnumap_tpu_torch.io import fastq as io_fastq, sam as sam_io, sgr as sgr_io
 from gnumap_tpu_torch.pipeline import mapper as pl
 
 # largest genome one int32 CSR index addresses (gnumap_tpu/dist/segments.py)
@@ -157,7 +157,7 @@ def batch_stream(paths, cfg, adaptor=None):
               if not p.endswith(("_prb.txt", ".prb", "_int.txt", ".int",
                                  ".fa", ".fasta"))]
     if len(fastqs) == len(paths):
-        from gnumap_tpu.core import packing
+        from gnumap_tpu_torch.core import packing
         ad = packing.encode(adaptor) if adaptor else None
         for path in paths:
             for b in io_fastq.batch_reads_native(path, cfg):
@@ -280,7 +280,7 @@ def main(argv=None) -> int:
         with open(args.output + ".sgr", "w") as f:
             sgr_io.write_sgr(f, genome, res.coverage, cfg.min_coverage_emit)
     if cfg.sgrex_out and res.tallies is not None:
-        from gnumap_tpu.posterior import snp
+        from gnumap_tpu_torch.posterior import snp
         pvals = snp.snp_pvalues(genome.codes, res.coverage, res.tallies)
         with open(args.output + ".sgrex", "w") as f:
             sgr_io.write_sgrex(f, genome, res.coverage, res.tallies, pvals,

@@ -29,9 +29,14 @@
 //   * n_real stays on the device: both kernels read it, so the caller never
 //     waits for the host.  Elements past the accumulator's end are skipped.
 //
-// Bound: device-memory traffic, one read and one write of each touched
-// element plus one read of each delta element; an owner's loop runs over
-// the deltas stacked on its element (a pileup), with independent loads.
+// What bounds it: bytes.  The first n_real delta windows are read once
+// (nrows x 128 f32 each, and their span starts), and every accumulator row
+// that a window touches is read once and written once:
+//   bound = (n_real x nrows x 512 + 4 n_real + 2 x touched rows x 512)
+//           / 3.35 TB/s
+// (the n_real x nrows x 128 float adds over 67 TFLOP/s are far below that).
+// An owner's loop runs over the deltas stacked on its element (a pileup),
+// with independent loads.
 //
 // C interface (ctypes): accum_rmw_launch(...) returns cudaGetLastError()
 // after the two launches, -2 for bad sizes.  It launches on the given

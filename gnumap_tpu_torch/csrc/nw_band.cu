@@ -6,12 +6,39 @@
 // TPU layout (segment packing into 128 lanes, the rolled 4-bit window plane,
 // SMEM meta, the unroll / peel / state-carry variants).
 //
-// Design (simple first):
-//   * One block per read-strand row (grid.y splits C > 128 candidates);
-//     thread c owns candidate c and exits at once on SENTINEL with NEG_INF.
-//   * The row's L x 5 emission table is staged in shared memory as rows of 8
-//     (codes 0..4, then DEEP for the poison code 5), so a lane's emission is
-//     one shared load indexed by its window code.
+// What bounds it: the int32 instruction rate.  A live pair costs len rows
+// of BW band cells, and a cell is 6 integer instructions and one shared load
+// (counted in the SASS of the row loop: 4 VIADDMNMX, 1 VIMNMX3 and 1 IDP.4A
+// that forms the emission's address, then LDS).  The bytes are nothing
+// beside that: each emission table, candidate and score moves once.  So
+//   bound = live pairs x len x BW x 6 / 16.7e12 int32 operations a second
+// (64 lanes per multiprocessor per clock), or the bytes over 3.35 TB/s where
+// that is larger.  Only live pairs count: SENTINEL slots and rows of length
+// 0 or above L need no work.
+//
+// Design:
+//   * Work follows live pairs, not slots.  A block takes R = 16 consecutive
+//     read-strand rows (fewer when their tables do not fit), compacts the
+//     live (row, c) slots of its R x C slots into a list in shared memory,
+//     in slot order, with warp ballots and a scan over the warps' counts,
+//     writes NEG_INF to the dead slots, and then its threads walk the list, a
+//     pair per thread, in rounds of blockDim.  A warp's lanes hold
+//     neighbouring pairs of the list, so they are all busy whatever the
+//     SENTINEL placement, and mostly share a read.  No tensor beyond the
+//     wrapper's, no second kernel, no host sync.  (Measured and not kept:
+//     rotating the warp that starts the list with the block number, and
+//     staging one (row, code) line per warp; both were slower on every set
+//     with dead slots.)
+//   * Lanes of a warp may hold reads of different length: each thread runs
+//     its own len rows and latches its score at its own row len; the warp
+//     reconverges after the row loop, so a round costs its longest read.
+//   * The R rows' emission tables are staged in shared memory as rows of 6
+//     int32 (codes 0..4, then DEEP for the poison code 5), row-major.  A
+//     lane's emission is one shared load whose address one IDP.4A makes: the
+//     lane's byte of P (4 x code) plus the row's byte offset.  Tables start
+//     4 banks apart (the stride S is 4 mod 32), so lanes on different reads
+//     that look up bases 0..3 hit different banks for up to 8 reads a warp;
+//     lanes on the same read and code share one address.
 //   * Diagonal-band state (the recurrence is in nw_band_row.cuh, shared
 //     with nw_pure.cu): lane b at read row i scores window column
 //     col = i + b - boff.  Each thread keeps two register arrays of BW int32:
@@ -23,8 +50,8 @@
 //     NEG_INF as in the Pallas body.
 //   * Window codes come from the int8 genome codes in device memory: N (4)
 //     outside the genome, the DEEP poison (5) outside window columns [1, W].
-//     They live 4-bit packed in registers and slide one lane per row; one
-//     new code is loaded per row.
+//     They live one byte per lane in registers and slide one lane per row;
+//     one new code is loaded per row, before the row's arithmetic.
 //   * The column-0 ramp needs no state: where the band holds column 0 its lane
 //     carries the ramp itself (so no col == 1 select is needed), and at the
 //     last row ix0 = max(-(open + (len - 1) ext), NEG_INF) in closed form.
@@ -35,13 +62,9 @@
 //     emission is below -open, and then only in unretained scores).
 //   * The score is latched at row len: max over lanes of max(M, Ix), and ix0.
 //     Length-0 reads (and len > L) give NEG_INF, as the Pallas kernel does.
-//
-// Bound: int32 ALU work, about 15 operations per band cell, BW cells per row
-// per thread; the band state is register-resident (template on BW) but a
-// warp holds only one read-strand's candidates, most of which are SENTINEL on
-// the map path, so most lanes of a warp idle.  Making it fast is later work:
-// a warp per pair with shuffles for the Ix / Iy shifts, and compaction of the
-// live pairs.
+//   * Registers: D, T and P are BW + BW + 1 + BW / 4 values; blocks of 128
+//     threads, at least 4 a multiprocessor up to BW = 42 (128 registers a
+//     thread) and 2 above (255).
 //
 // C interface (ctypes): nw_band_launch(...) returns cudaGetLastError() after
 // the launch, -1 for an unsupported band width, -2 for bad sizes.  It launches
@@ -51,71 +74,188 @@
 
 namespace {
 
-constexpr int MAX_THREADS = 128; // candidates per block
+constexpr int NT = 128;         // threads per block
+constexpr int NWARP = NT / 32;
+constexpr int MAX_ROWS = 16;    // read-strand rows per block
+// Shared memory a block may ask for: above SOFT_SMEM the rows per block are
+// halved (two blocks a multiprocessor stay resident), HARD_SMEM is the card's
+// limit for one block.
+constexpr size_t SOFT_SMEM = 112 * 1024;
+constexpr size_t HARD_SMEM = 227 * 1024;
+
+// int32 stride between two reads' emission tables: L rows of ECODES, padded
+// to 4 mod 32 so that neighbouring tables start 4 banks apart.
+__host__ __device__ inline int table_stride(int L) {
+  const int s = L * ECODES;
+  return s + (36 - s % 32) % 32;
+}
+
+inline size_t smem_bytes(int R, int C, int L) {
+  return (size_t)R * table_stride(L) * 4 + (size_t)R * 4 + (size_t)R * C * 2;
+}
 
 template <int BW>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(NT, BW <= 42 ? 4 : 2)
 nw_band_kernel(const int32_t* __restrict__ emis_t,
                const int32_t* __restrict__ cands,
                const int32_t* __restrict__ lens,
                const int8_t* __restrict__ genome, long long G,
-               int32_t* __restrict__ out, int C, int L, int W, int slack,
-               int boff, int open_q, int ext_q) {
-  extern __shared__ int32_t s_emis[];
-  const int row = blockIdx.x;
-  const int len = lens[row];
-  const int32_t* e_row = emis_t + (size_t)row * 5 * L;
-  for (int k = threadIdx.x; k < L * EROW; k += blockDim.x) {
-    const int i = k / EROW, v = k % EROW;
-    s_emis[k] = v < 5 ? e_row[(size_t)v * L + i] : DEEP;
+               int32_t* __restrict__ out, int B2, int C, int L, int W,
+               int slack, int boff, int open_q, int ext_q, int R) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_wcnt[NWARP];
+  const int S = table_stride(L);
+  int32_t* s_emis = reinterpret_cast<int32_t*>(smem);         // R x S
+  int* s_len = reinterpret_cast<int*>(s_emis + (size_t)R * S);  // R
+  unsigned short* s_list =
+      reinterpret_cast<unsigned short*>(s_len + R);           // R x C
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.x * R;
+  const int nrows = min(R, B2 - row0);
+  const int slots = nrows * C;
+  const int32_t* cg = cands + (size_t)row0 * C;
+  int32_t* og = out + (size_t)row0 * C;
+
+  // stage the rows' emission tables: global code-major [5][L] -> [L][6]
+  if (tid < nrows) s_len[tid] = lens[row0 + tid];
+  const int32_t* eg = emis_t + (size_t)row0 * 5 * L;
+  for (int k = tid; k < nrows * 5 * L; k += NT) {
+    const int r = k / (5 * L), rem = k - r * 5 * L;
+    const int v = rem / L, i = rem - v * L;
+    s_emis[r * S + i * ECODES + v] = eg[k];
+  }
+  for (int k = tid; k < nrows * L; k += NT) {
+    const int r = k / L, i = k - r * L;
+    s_emis[r * S + i * ECODES + 5] = DEEP;
   }
   __syncthreads();
-  const int c = blockIdx.y * MAX_THREADS + threadIdx.x;
-  if (c >= C) return;
-  const int cand = cands[(size_t)row * C + c];
-  int32_t* dst = out + (size_t)row * C + c;
-  if (cand == SENTINEL || len <= 0 || len > L) {
-    *dst = NEG_INF;
-    return;
+
+  // compact the live slots into s_list, in slot order; NEG_INF to the rest
+  int n = 0;
+  for (int base = 0; base < slots; base += NT) {
+    const int slot = base + tid;
+    bool live = false;
+    if (slot < slots) {
+      const int len = s_len[slot / C];
+      live = cg[slot] != SENTINEL && len > 0 && len <= L;
+      if (!live) og[slot] = NEG_INF;
+    }
+    const unsigned bal = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) s_wcnt[warp] = __popc(bal);
+    __syncthreads();
+    int before = n;
+#pragma unroll
+    for (int w = 0; w < NWARP; ++w) {
+      const int cnt = s_wcnt[w];
+      if (w < warp) before += cnt;
+      n += cnt;
+    }
+    if (live)
+      s_list[before + __popc(bal & ((1u << lane) - 1u))] =
+          (unsigned short)slot;
+    __syncthreads();
   }
-  const long long ws = window_start(cand, slack);
-  unsigned P[(BW + 7) / 8];
-  int D[BW], T[BW + 1];
-  band_init<BW>(D, T, P, genome, G, ws, W, boff, open_q, ext_q);
+
   const auto none = [](int, int, int, int) {};
-  for (int i = 1; i < len; ++i) {
-    const int32_t* er = s_emis + (i - 1) * EROW;
-    band_row<BW>(D, T, P, [er](unsigned code) { return er[code]; }, open_q,
-                 ext_q, none);
-    T[BW] = NEG_INF;  // out of band from row 1 on
-    band_slide<BW>(P, genome, G, ws, i, boff, W);
+  for (int k = tid; k < n; k += NT) {
+    const int slot = s_list[k];
+    const int r = slot / C;
+    const int len = s_len[r];
+    const long long ws = window_start(cg[slot], slack);
+    unsigned P[band_words(BW)];
+    int D[BW], T[BW + 1];
+    band_init<BW>(D, T, P, genome, G, ws, W, boff, open_q);
+    // byte offset in smem of the emission row of DP row i (read base i - 1)
+    unsigned rowbase = (unsigned)(r * S) * 4u;
+    const auto emit = [&rowbase](unsigned word, int kk) {
+      return *reinterpret_cast<const int32_t*>(
+          smem + __dp4a(word, 1u << (8 * kk), rowbase));
+    };
+    for (int i = 1; i < len; ++i) {
+      const unsigned top =
+          code4_at(genome, G, ws, slide_index<BW>(i, boff), W);
+      band_row<BW>(D, T, P, emit, open_q, ext_q, none);
+      T[BW] = NEG_INF;  // out of band from row 1 on
+      band_slide<BW>(P, top);
+      rowbase += ECODES * 4;
+    }
+    // the score is latched at row len: max over lanes of max(M, Ix), and ix0
+    int fin = NEG_INF;
+    band_row<BW>(D, T, P, emit, open_q, ext_q,
+                 [&fin](int, int, int mn, int ixn) {
+                   fin = max3(fin, mn, ixn);
+                 });
+    const long long ix0 = -(long long)open_q - (long long)(len - 1) * ext_q;
+    og[slot] = max(fin, (int)(ix0 > NEG_INF ? ix0 : NEG_INF));
   }
-  // the score is latched at row len: max over lanes of max(M, Ix), and ix0
-  const int32_t* er = s_emis + (len - 1) * EROW;
-  int fin = NEG_INF;
-  band_row<BW>(D, T, P, [er](unsigned code) { return er[code]; }, open_q,
-               ext_q, [&fin](int, int, int mn, int ixn) {
-                 fin = max(fin, max(mn, ixn));
-               });
-  const long long ix0 = -(long long)open_q - (long long)(len - 1) * ext_q;
-  *dst = max(fin, (int)(ix0 > NEG_INF ? ix0 : NEG_INF));
 }
 
 template <int BW>
 cudaError_t launch(const int32_t* emis_t, const int32_t* cands,
                    const int32_t* lens, const int8_t* genome, long long G,
                    int32_t* out, int B2, int C, int L, int W, int slack,
-                   int boff, int open_q, int ext_q, cudaStream_t stream) {
-  const int threads = C < MAX_THREADS ? (C + 31) / 32 * 32 : MAX_THREADS;
-  const dim3 grid(B2, (C + MAX_THREADS - 1) / MAX_THREADS);
-  const size_t smem = (size_t)L * EROW * sizeof(int32_t);
-  nw_band_kernel<BW><<<grid, threads, smem, stream>>>(
-      emis_t, cands, lens, genome, G, out, C, L, W, slack, boff, open_q,
-      ext_q);
+                   int boff, int open_q, int ext_q, int R, size_t smem,
+                   cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        nw_band_kernel<BW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (rc != cudaSuccess) return rc;
+  }
+  nw_band_kernel<BW><<<(B2 + R - 1) / R, NT, smem, stream>>>(
+      emis_t, cands, lens, genome, G, out, B2, C, L, W, slack, boff, open_q,
+      ext_q, R);
   return cudaGetLastError();
 }
 
+// Rows per block and its shared memory: the list holds 16-bit slot numbers,
+// and the tables of R rows must fit.  False when even one row does not.
+inline bool block_shape(int C, int L, int* R, size_t* smem) {
+  if (L <= 0 || C <= 0 || C > 65535) return false;
+  *R = MAX_ROWS;
+  while (*R > 1 && (*R * C > 65535 || smem_bytes(*R, C, L) > SOFT_SMEM))
+    *R >>= 1;
+  *smem = smem_bytes(*R, C, L);
+  return *smem <= HARD_SMEM;
+}
+
+template <int BW>
+int resident_blocks(size_t smem) {
+  int n = 0;
+  if (smem > 48 * 1024 &&
+      cudaFuncSetAttribute(nw_band_kernel<BW>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return -3;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, nw_band_kernel<BW>, NT, smem) != cudaSuccess)
+    return -3;
+  return n;
+}
+
 }  // namespace
+
+// bw = 4 * gap_slack + 10 for gap_slack 0..13 (MapperConfig.band)
+#define NW_BAND_WIDTHS(X)                                                  \
+  X(10) X(14) X(18) X(22) X(26) X(30) X(34) X(38) X(42) X(46) X(50) X(54) \
+  X(58) X(62)
+
+// Blocks of NT threads the runtime keeps resident on one multiprocessor for
+// this band width and shape (-1 unsupported width, -2 bad sizes).
+extern "C" int nw_band_resident_blocks(int bw, int C, int L) {
+  int R;
+  size_t smem;
+  if (!block_shape(C, L, &R, &smem)) return -2;
+  switch (bw) {
+#define NW_BAND_CASE(N) \
+  case N:               \
+    return resident_blocks<N>(smem);
+    NW_BAND_WIDTHS(NW_BAND_CASE)
+#undef NW_BAND_CASE
+    default:
+      return -1;
+  }
+}
 
 extern "C" int nw_band_launch(const void* emis_t, const void* cands,
                               const void* lens, const void* genome,
@@ -123,7 +263,9 @@ extern "C" int nw_band_launch(const void* emis_t, const void* cands,
                               int W, int slack, int boff, int bw, int open_q,
                               int ext_q, void* stream) {
   if (B2 <= 0 || C <= 0) return 0;
-  if (L <= 0 || L * EROW * 4 > 48 * 1024) return -2;
+  int R;
+  size_t smem;
+  if (!block_shape(C, L, &R, &smem)) return -2;
   const auto* e = static_cast<const int32_t*>(emis_t);
   const auto* cd = static_cast<const int32_t*>(cands);
   const auto* ln = static_cast<const int32_t*>(lens);
@@ -134,12 +276,8 @@ extern "C" int nw_band_launch(const void* emis_t, const void* cands,
 #define NW_BAND_CASE(N)                                                    \
   case N:                                                                  \
     return (int)launch<N>(e, cd, ln, g, G, o, B2, C, L, W, slack, boff,   \
-                          open_q, ext_q, s);
-    // bw = 4 * gap_slack + 10 for gap_slack 0..13 (MapperConfig.band)
-    NW_BAND_CASE(10) NW_BAND_CASE(14) NW_BAND_CASE(18) NW_BAND_CASE(22)
-    NW_BAND_CASE(26) NW_BAND_CASE(30) NW_BAND_CASE(34) NW_BAND_CASE(38)
-    NW_BAND_CASE(42) NW_BAND_CASE(46) NW_BAND_CASE(50) NW_BAND_CASE(54)
-    NW_BAND_CASE(58) NW_BAND_CASE(62)
+                          open_q, ext_q, R, smem, s);
+    NW_BAND_WIDTHS(NW_BAND_CASE)
 #undef NW_BAND_CASE
     default:
       return -1;

@@ -23,8 +23,14 @@
 //     retention needs a score > 0.  len > L gives NEG_INF.
 //   * Emissions are read by lanes 0..4 from device memory, one row ahead.
 //
-// Bound: int32 ALU and shuffle work, about 20 operations per cell over the
-// full window width (W = L + 2 gap_slack + 8) and len rows per live pair.
+// What bounds it: the int32 instruction rate.  A live pair (not SENTINEL,
+// 0 <= len <= L) costs len rows of W cells (W = L + 2 gap_slack + 8); the
+// least a cell needs is the banded cell's 6 integer instructions
+// (nw_band_row.cuh: 5 DPX and the emission's address).  So
+//   bound = live pairs x len x W x 6 / 16.7e12 int32 operations a second,
+// or the bytes over 3.35 TB/s where that is larger (each live row's emission
+// table, each live pair's window, candidates and lengths in, scores out).
+// This kernel spends about 20 operations and shuffles per cell.
 //
 // C interface (ctypes): nw_full_launch(...) returns cudaGetLastError() after
 // the launch, -1 for an unsupported width (W > 256), -2 for bad sizes.  It

@@ -20,15 +20,21 @@
 //     lane are at hand, in ascending lane order, so no end-row capture
 //     arrays are written.
 //   * Each hit has its own read-strand emission table, so a thread stages
-//     its row's 5 emissions in its own column of shared memory (rows 5..7
-//     hold DEEP) and a lane's emission is one shared load by window code.
+//     its row's 5 emissions in its own column of shared memory (row 5
+//     holds DEEP) and a lane's emission is one shared load by window code.
 //   * SENTINEL slots, length 0 (and len > L) and score <= 0 give
 //     (false, 0) at once, as the reference's epilogue does for them.
 //
-// Bound: int32 ALU work, about 17 operations per band cell, BW cells per
-// row per thread, plus 5 global loads per row.  The band state is
-// register-resident; at bw 62 (gap_slack 13) D, T and gl need about 190
-// registers, so a spill there is possible (the build reports it).
+// What bounds it: the int32 instruction rate.  A live hit (not SENTINEL,
+// 0 < len <= L, score > 0) costs len rows of BW band cells; a cell is B1's
+// 5 DPX instructions, one more VIADDMNMX for gl and 2 integer instructions
+// for the emission's address (byte extract, multiply-add), 8 in all, then
+// the shared load; besides 5 global loads per row.  So
+//   bound = live hits x len x BW x 8 / 16.7e12 int32 operations a second,
+// or the bytes (tables, candidates, lengths and scores in, pure and jfin out)
+// over 3.35 TB/s where that is larger.  The band state is register-resident;
+// at bw 62 (gap_slack 13) D, T and gl need about 190 registers, so a spill
+// there is possible (the build reports it).
 //
 // C interface (ctypes): nw_pure_launch(...) returns cudaGetLastError() after
 // the launch, -1 for an unsupported band width, -2 for bad sizes.  It
@@ -50,14 +56,12 @@ nw_pure_kernel(const int32_t* __restrict__ emis_t,
                uint8_t* __restrict__ pure_out, int32_t* __restrict__ jfin_out,
                int H, int L, int W, int slack, int boff, int open_q,
                int ext_q) {
-  __shared__ int32_t s_e[EROW * NT];
+  __shared__ int32_t s_e[ECODES * NT];
   const int t = threadIdx.x;
   const int h = blockIdx.x * NT + t;
   if (h >= H) return;
   int32_t* se = s_e + t;  // this thread's column: se[v * NT], v = code
   se[5 * NT] = DEEP;
-  se[6 * NT] = DEEP;
-  se[7 * NT] = DEEP;
   const int cand = cands[h];
   const int len = lens[h];
   const int score = scores[h];
@@ -66,21 +70,27 @@ nw_pure_kernel(const int32_t* __restrict__ emis_t,
   if (cand != SENTINEL && len > 0 && len <= L && score > 0) {
     const long long ws = window_start(cand, slack);
     const int32_t* e_h = emis_t + (size_t)h * 5 * L;
-    const auto emit = [se](unsigned code) { return se[code * NT]; };
-    unsigned P[(BW + 7) / 8];
+    // a byte of P is 4 * code: the code's row of s_e is NT int32 further
+    const auto emit = [se](unsigned word, int k) {
+      return *reinterpret_cast<const int32_t*>(
+          reinterpret_cast<const unsigned char*>(se) + code_byte(word, k) * NT);
+    };
+    unsigned P[band_words(BW)];
     int D[BW], T[BW + 1], gl[BW];
-    band_init<BW>(D, T, P, genome, G, ws, W, boff, open_q, ext_q);
+    band_init<BW>(D, T, P, genome, G, ws, W, boff, open_q);
 #pragma unroll
     for (int b = 0; b < BW; ++b) gl[b] = 0;
     for (int i = 1; i < len; ++i) {
+      const unsigned top =
+          code4_at(genome, G, ws, slide_index<BW>(i, boff), W);
 #pragma unroll
       for (int v = 0; v < 5; ++v) se[v * NT] = e_h[(size_t)v * L + i - 1];
       band_row<BW>(D, T, P, emit, open_q, ext_q,
                    [&gl](int b, int e, int, int) {
-                     gl[b] = max(gl[b] + e, NEG_INF);
+                     gl[b] = addmax(gl[b], e, NEG_INF);
                    });
       T[BW] = NEG_INF;  // out of band from row 1 on
-      band_slide<BW>(P, genome, G, ws, i, boff, W);
+      band_slide<BW>(P, top);
     }
 #pragma unroll
     for (int v = 0; v < 5; ++v) se[v * NT] = e_h[(size_t)v * L + len - 1];
@@ -88,7 +98,7 @@ nw_pure_kernel(const int32_t* __restrict__ emis_t,
     bool found = false;
     band_row<BW>(D, T, P, emit, open_q, ext_q,
                  [&](int b, int e, int mn, int ixn) {
-                   const int g = max(gl[b] + e, NEG_INF);
+                   const int g = addmax(gl[b], e, NEG_INF);
                    if (!found && max(mn, ixn) == score) {
                      found = true;
                      end = b;

@@ -32,8 +32,15 @@
 //   * SENTINEL slots, length 0 (and len > L) give ops 0 and jfin 0, as the
 //     reference does for slots that never start a backwalk.
 //
-// Bound: int32 ALU and shuffle work, about 30 operations per cell over the
-// full window width, plus the serial backwalk (len steps, one shared load
+// What bounds it: the int32 instruction rate.  A live hit (not SENTINEL,
+// 0 < len <= L) costs len rows of W cells; the least a cell needs is the
+// banded cell's 6 integer instructions (nw_band_row.cuh: 5 DPX and the
+// emission's address) and one per direction bit, 10 in all.  So
+//   bound = live hits x len x W x 10 / 16.7e12 int32 operations a second,
+// or the bytes over 3.35 TB/s where that is larger: each live hit's emission
+// table and window, candidates and lengths in, ops and jfin out, and half a
+// byte of directions per cell.  This kernel spends about 30 operations and
+// shuffles per cell, plus the serial backwalk (len steps, one shared load
 // each, more on a deletion run) on one lane of the warp.
 //
 // C interface (ctypes): nw_tb_launch(...) returns cudaGetLastError() after

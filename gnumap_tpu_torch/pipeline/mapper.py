@@ -44,13 +44,13 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from gnumap_tpu.align import scoring
-from gnumap_tpu.config import NEG_INF, RATIO_BITS, MapperConfig
-from gnumap_tpu.core import packing, pwm as pwm_mod
-from gnumap_tpu.index.builder import BsIndexPair, CsrIndex, Genome
-from gnumap_tpu.io import sam as sam_io
-from gnumap_tpu.io.fastq import ReadBatch
-from gnumap_tpu.oracle import oracle
+from gnumap_tpu_torch.align import scoring
+from gnumap_tpu_torch.config import NEG_INF, RATIO_BITS, MapperConfig
+from gnumap_tpu_torch.core import packing, pwm as pwm_mod
+from gnumap_tpu_torch.index.builder import BsIndexPair, CsrIndex, Genome
+from gnumap_tpu_torch.io import sam as sam_io
+from gnumap_tpu_torch.io.fastq import ReadBatch
+from gnumap_tpu_torch.oracle import oracle
 from gnumap_tpu_torch.align import nw_band, nw_full, nw_pure, nw_ref, nw_tb
 
 SENTINEL = np.iinfo(np.int32).max
@@ -436,7 +436,7 @@ def device_accumulate(cfg: MapperConfig, B: int, pwm2, rows: dict, cov,
     so the two agree to f32 rounding.  Nothing here waits for the host.
 
     Returns stats int32[4] = [n_mapped, n_multi, n_valid, n_keep]."""
-    from gnumap_tpu.config import PWM_SCALE
+    from gnumap_tpu_torch.config import PWM_SCALE
     from gnumap_tpu_torch.posterior import accum
     valid_h, row_h = rows["valid_h"], rows["row_h"]
     score_h, len_h = rows["score_h"], rows["len_h"]
@@ -1044,7 +1044,7 @@ def map_stream(mapper: TorchMapper, batches: Iterable[ReadBatch],
 
     # Native batch SAM formatter: one C call per batch, byte-identical to
     # the io/sam.py records.
-    from gnumap_tpu.native import lib as native_lib
+    from gnumap_tpu_torch.native import lib as native_lib
     use_native_sam = cfg.sam_out and native_lib.available()
     batch_idx = start_batch
     _ck_fut: list = [None]
@@ -1136,8 +1136,8 @@ def format_sam_batch_native(gen: Genome, batch: ReadBatch,
                             hits_per_read) -> str:
     """One batch of SAM records via the native formatter — byte-identical
     to the per-record io/sam.py path."""
-    from gnumap_tpu.config import SCORE_ONE
-    from gnumap_tpu.native import lib as native_lib
+    from gnumap_tpu_torch.config import SCORE_ONE
+    from gnumap_tpu_torch.native import lib as native_lib
     n = batch.n
     lens = batch.lens
     b_idx: List[int] = []
@@ -1196,7 +1196,7 @@ def _scatter_coverage(coverage: np.ndarray,
     pos = np.fromiter((r[0] for r in rows), np.int64, len(rows))
     rl = np.fromiter((r[1] for r in rows), np.int64, len(rows))
     w = np.fromiter((r[2] for r in rows), np.float64, len(rows))
-    from gnumap_tpu.native import lib as native_lib
+    from gnumap_tpu_torch.native import lib as native_lib
     if native_lib.available():
         native_lib.scatter_coverage(coverage, pos, rl, w)
         return
@@ -1214,13 +1214,13 @@ def _scatter_tallies(tallies: np.ndarray, batch: ReadBatch,
     rows = (read, minus, pos, weight, cigar-or-None) in hit order; None
     marks a pure-match hit.  One ordered scatter, bit-identical to the
     per-hit loop."""
-    from gnumap_tpu.config import PWM_SCALE
+    from gnumap_tpu_torch.config import PWM_SCALE
     G = tallies.shape[0]
     pw = batch.pwm_q
     Lmax = pw.shape[1]
     ar = np.arange(Lmax, dtype=np.int64)
     lens = batch.lens.astype(np.int64)
-    from gnumap_tpu.native import lib as native_lib
+    from gnumap_tpu_torch.native import lib as native_lib
     if native_lib.available():
         native_lib.scatter_tallies(
             tallies, pw, batch.lens,
@@ -1285,7 +1285,7 @@ def _scatter_tallies(tallies: np.ndarray, batch: ReadBatch,
 def _traceback(emis_np, window, cfg):
     """Native C++ traceback when available, bit-identical to
     oracle.nw_align."""
-    from gnumap_tpu.native import lib as native_lib
+    from gnumap_tpu_torch.native import lib as native_lib
     if native_lib.available():
         return native_lib.nw_traceback(
             emis_np, window, cfg.gap_open_q(), cfg.gap_extend_q(), NEG_INF,
@@ -1373,7 +1373,7 @@ def host_finish(genome: Genome, S_plus_np, S_minus_np, cfg: MapperConfig,
 
     out: List[List[ReadHit]] = [[] for _ in range(n)]
 
-    from gnumap_tpu.native import lib as native_lib
+    from gnumap_tpu_torch.native import lib as native_lib
     if len(need) > 16 and native_lib.available():
         rows_k, cols_k = np.nonzero(keep)
         sel = (rows_k % B) < n

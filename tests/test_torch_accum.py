@@ -28,6 +28,7 @@ from gnumap_tpu_torch.posterior import accum
 
 from test_device_accum import _overflow_workload, _run as _run_jax, \
     _workload
+from test_torch_bridge import port_iter, to_port
 
 torch.set_num_threads(1)
 
@@ -66,8 +67,9 @@ def test_plain_apply_deltas_equals_pallas(rowmul, order):
 
 
 def _run(cfg, gen, idx, recs, accumulate, **kw):
-    m = tm.TorchMapper(gen, idx, cfg, device="cpu", accumulate=accumulate)
-    return tm.map_stream(m, io_fastq.batch_reads(iter(recs), cfg),
+    m = tm.TorchMapper(*to_port((gen, idx, cfg)), device="cpu",
+                       accumulate=accumulate)
+    return tm.map_stream(m, port_iter(io_fastq.batch_reads(iter(recs), cfg)),
                          collect_sam=cfg.sam_out, **kw)
 
 
@@ -134,8 +136,9 @@ def test_device_accum_checkpoint_resume(tmp_path, runs):
     run, bit for bit."""
     cfg, gen, idx, recs = WORKLOADS["snp"]()
     ck = str(tmp_path / "acc.ck.npz")
-    batches = list(io_fastq.batch_reads(iter(recs), cfg))
+    batches = to_port(list(io_fastq.batch_reads(iter(recs), cfg)))
     assert len(batches) >= 2
+    gen, idx, cfg = to_port((gen, idx, cfg))
     m = tm.TorchMapper(gen, idx, cfg, device="cpu", accumulate="device")
     tm.map_stream(m, iter(batches[:1]), collect_sam=False,
                   checkpoint_path=ck, checkpoint_every=1)
@@ -162,8 +165,9 @@ def test_device_accum_checkpoint_resume_inflight(tmp_path):
         if idx_b >= 2:          # interrupt with ~3 batches still in flight
             raise Boom()
 
-    batches = list(io_fastq.batch_reads(iter(recs), cfg))
+    batches = to_port(list(io_fastq.batch_reads(iter(recs), cfg)))
     assert len(batches) >= 5
+    gen, idx, cfg = to_port((gen, idx, cfg))
     m = tm.TorchMapper(gen, idx, cfg, device="cpu", accumulate="device")
     with pytest.raises(Boom):
         tm.map_stream(m, iter(batches), collect_sam=False,
@@ -217,8 +221,8 @@ def test_device_accum_sam_records_identical(ref, runs):
 def test_accumulate_device_needs_device_finish():
     cfg, gen, idx, _ = _workload(snp=False, n=4)
     with pytest.raises(ValueError, match="finish_impl='device'"):
-        tm.TorchMapper(gen, idx, cfg, device="cpu", finish_impl="host",
-                       accumulate="device")
+        tm.TorchMapper(*to_port((gen, idx, cfg)), device="cpu",
+                       finish_impl="host", accumulate="device")
 
 
 def _sgr_values(path):

@@ -1,6 +1,6 @@
 """Tests of the port that need a CUDA card (marker ``cuda``; each skips
 without one).  This file imports no jax, so it runs on a machine that has
-only torch:
+only torch and the port (nothing of the JAX package is imported):
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
@@ -15,12 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-from gnumap_tpu.align import scoring
-from gnumap_tpu.config import NEG_INF, MapperConfig
-from gnumap_tpu.core import packing, pwm
-from gnumap_tpu.index import builder
-from gnumap_tpu.io import fastq as io_fastq
-from gnumap_tpu.utils import sim
+from gnumap_tpu_torch.align import scoring
+from gnumap_tpu_torch.config import NEG_INF, MapperConfig
+from gnumap_tpu_torch.core import packing, pwm
+from gnumap_tpu_torch.index import builder
+from gnumap_tpu_torch.io import fastq as io_fastq
+from gnumap_tpu_torch.utils import sim
 from gnumap_tpu_torch.align import nw_band, nw_full, nw_pure, nw_tb
 from gnumap_tpu_torch.pipeline import mapper as tm
 from gnumap_tpu_torch.posterior import accum
@@ -52,15 +52,17 @@ def _inputs(rng, B2, C, L, G, cfg):
     return [torch.from_numpy(x) for x in (emis_t, cands, lens, genome)]
 
 
-@pytest.mark.parametrize("slack,C,harsh", [(8, 32, False), (8, 160, False),
-                                           (0, 8, False), (13, 8, False),
-                                           (8, 32, True)])
-def test_kernel_matches_plain(slack, C, harsh):
-    """Including C > 128 (a second block per row), length 0 and L, anchors
-    below 0 and past the genome's end, the narrowest and widest bands, and
-    a scoring whose emissions reach below -open."""
+@pytest.mark.parametrize("slack,C,harsh,L", [
+    (8, 32, False, 48), (8, 160, False, 48), (0, 8, False, 48),
+    (13, 8, False, 48), (8, 32, True, 48), (8, 128, False, 160),
+    (8, 8, False, 600)])
+def test_kernel_matches_plain(slack, C, harsh, L):
+    """Including C > 128, length 0 and L, anchors below 0 and past the
+    genome's end, the narrowest and widest bands, a scoring whose emissions
+    reach below -open, and read lengths whose emission tables need more
+    than 48 KB of shared memory a block (L = 160 at 16 rows a block) or
+    fewer rows a block (L = 600)."""
     dev = _card()
-    L = 48
     extra = (dict(mismatch_score=-8.0, gap_open=1.0, gap_extend=0.5)
              if harsh else {})
     cfg = MapperConfig(max_read_len=L, gap_slack=slack, **extra)
@@ -75,6 +77,63 @@ def test_kernel_matches_plain(slack, C, harsh):
     want = nw_band.nw_scores_banded(*args, **kw)
     assert torch.equal(got.cpu(), want)
     assert (want[0] == NEG_INF).all()
+
+
+LIVE_SETS = ("all_live", "half_random", "prefix", "one_per_row", "none_live",
+             "mixed_lengths")
+
+
+def live_set(name, rng, B2, C, L, G):
+    """(cands int32[B2, C], lens int32[B2]) with the live slots of ``name``:
+    the small twins of chip_smoke.py's kernel_b1 sets.  SENTINELs sit
+    anywhere in a row except in "all_live" and "prefix" (sorted, SENTINEL
+    last, as the mapper's dedupe_cap leaves them); "mixed_lengths" holds
+    reads of length 0, 1 and L among random ones."""
+    full = rng.integers(-L // 2, G - 1, (B2, C))
+    col = np.arange(C)[None, :]
+    lens = np.full(B2, L - 2, np.int32)
+    mask = {"all_live": np.ones((B2, C), bool),
+            "half_random": rng.random((B2, C)) < 0.5,
+            "prefix": col < rng.integers(1, 4, B2)[:, None],
+            "one_per_row": col == rng.integers(0, C, B2)[:, None],
+            "none_live": np.zeros((B2, C), bool),
+            "mixed_lengths": rng.random((B2, C)) < 0.5}[name]
+    cands = np.where(mask, full, nw_band.SENTINEL)
+    if name in ("all_live", "prefix"):
+        cands = np.sort(cands, axis=1)
+    if name == "mixed_lengths":
+        lens = rng.integers(1, L + 1, B2).astype(np.int32)
+        lens[:3] = (0, 1, L)
+    return cands.astype(np.int32), lens
+
+
+@pytest.mark.parametrize("slack", [8, 4, 13])
+@pytest.mark.parametrize("name", LIVE_SETS)
+def test_kernel_matches_plain_on_live_sets(name, slack):
+    """B1 on the card == its plain version on every slot, whatever the
+    SENTINEL placement: every slot live, half at random, a sorted prefix,
+    one per row, none, and mixed lengths with 0, 1, L and L + 1; 40 rows, so
+    the last block of 16 rows is ragged; band widths 42, 26 and 62."""
+    dev = _card()
+    L, C, B2, G = 48, 32, 40, 3000
+    cfg = MapperConfig(max_read_len=L, gap_slack=slack)
+    rng = np.random.default_rng(slack)
+    emis_t, _, _, genome = _inputs(rng, B2, C, L, G, cfg)
+    cands, lens = live_set(name, rng, B2, C, L, G)
+    if name == "mixed_lengths":
+        lens[3] = L + 1
+    lens = torch.from_numpy(lens)
+    emis_t = emis_t * (torch.arange(L)[None, :] < lens[:, None])[:, None, :]
+    args = [emis_t.contiguous(), torch.from_numpy(cands), lens, genome]
+    boff, bw = cfg.band()
+    kw = dict(L=L, W=cfg.window_width(), slack=slack, boff=boff, bw=bw,
+              open_q=cfg.gap_open_q(), ext_q=cfg.gap_extend_q())
+    got = nw_band.nw_scores_banded(*(a.to(dev) for a in args), **kw)
+    torch.cuda.synchronize()
+    want = nw_band.nw_scores_banded(*args, **kw)
+    assert torch.equal(got.cpu(), want)
+    dead = (args[1] == nw_band.SENTINEL) | ((lens <= 0) | (lens > L))[:, None]
+    assert (want[dead] == NEG_INF).all() and (want[~dead] > NEG_INF).all()
 
 
 def test_kernel_wrapper_checks_inputs():

@@ -26,6 +26,7 @@ from gnumap_tpu_torch.align import nw_band, nw_pure, nw_tb
 from gnumap_tpu_torch.pipeline import mapper as tm
 
 from test_devtb import _mk_hits, _pipeline_workload
+from test_torch_bridge import to_port
 
 torch.set_num_threads(1)
 
@@ -232,13 +233,14 @@ def test_device_blob_equals_pallas(split, workloads, monkeypatch):
     cfg, gen, idx, batches = workloads("indel_heavy")
     ref = jm.TpuMapper(gen, idx, cfg, align_impl="pallas",
                        finish_impl="device")
-    port = tm.TorchMapper(gen, idx, cfg, device="cpu")
+    targs = to_port((gen, idx, cfg))
+    port = tm.TorchMapper(*targs, device="cpu")
     n_indel = 0
     for b in batches:
         for bb in (b, dataclasses.replace(b, pwm_arr=None)):
             want = np.asarray(ref.submit(bb).result())
-            got, _ = port.submit(bb)
-            assert len(got) == tm.tb_blob_len(cfg, b.codes.shape[0])
+            got, _ = port.submit(to_port(bb))
+            assert len(got) == tm.tb_blob_len(targs[2], b.codes.shape[0])
             assert np.array_equal(got.numpy(), want)
         n_indel += int(want[-1])
     assert n_indel > 0
@@ -255,18 +257,20 @@ def test_device_finish_equals_host_finish_and_jax(name, workloads):
     weights included; the overflow workload takes the host-path fallback
     (n_keep > H) and must stay exact."""
     cfg, gen, idx, batches = workloads(name)
-    dev = tm.TorchMapper(gen, idx, cfg, device="cpu")
-    host = tm.TorchMapper(gen, idx, cfg, device="cpu", finish_impl="host")
+    targs = to_port((gen, idx, cfg))
+    dev = tm.TorchMapper(*targs, device="cpu")
+    host = tm.TorchMapper(*targs, device="cpu", finish_impl="host")
     ref = jm.TpuMapper(gen, idx, cfg, align_impl="pallas",
                        finish_impl="device")
     n_overflow = n_indel_cigars = 0
     for b in batches:
-        got = dev.map_batch(b)
-        assert _hits(got) == _hits(host.map_batch(b))
+        tb = to_port(b)
+        got = dev.map_batch(tb)
+        assert _hits(got) == _hits(host.map_batch(tb))
         assert _hits(got) == _hits(ref.map_batch(b))
-        blob = dev.submit(b)[0].numpy()
-        n_overflow += tm.decode_tb_blob(cfg, b.codes.shape[0], b.n, b.lens,
-                                        blob) is None
+        blob = dev.submit(tb)[0].numpy()
+        n_overflow += tm.decode_tb_blob(targs[2], b.codes.shape[0], b.n,
+                                        b.lens, blob) is None
         n_indel_cigars += sum(1 for hl in got for h in hl
                               if "I" in h.cigar or "D" in h.cigar)
     if name == "overflow":
@@ -306,7 +310,7 @@ def test_unported_and_invalid_options_raise(phix_genome):
     cfg = MapperConfig(mer_size=8, max_read_len=40)
     gen = builder.Genome.from_contigs([("phiX_sim", phix_genome)])
     with pytest.raises(ValueError, match="finish_impl"):
-        tm.TorchMapper(gen, builder.build_index(gen, cfg), cfg,
+        tm.TorchMapper(*to_port((gen, builder.build_index(gen, cfg), cfg)),
                        device="cpu", finish_impl="devices")
 
 

@@ -17,6 +17,8 @@ from gnumap_tpu.pipeline import mapper as jm
 from gnumap_tpu.utils import sim
 from gnumap_tpu_torch.pipeline import mapper as tm
 
+from test_torch_bridge import to_port
+
 torch.set_num_threads(1)
 
 T = torch.from_numpy
@@ -107,7 +109,7 @@ def test_seed_csr_dedupe(batch, max_candidates):
     _eq(km, jkm)
     _eq(bad, jbad)
     cand = tm.csr_hits(km, bad, T(idx.bucket_start), T(idx.positions),
-                       T(offsets.astype(np.int64)), cfg)
+                       T(offsets.astype(np.int64)), to_port(cfg))
     jcand = jm.csr_hits(np.asarray(jkm), np.asarray(jbad), idx.bucket_start,
                         idx.positions, offsets, cfg)
     _eq(cand, jcand)
@@ -137,5 +139,5 @@ def test_windows_for(batch):
     cfg, gen, idx, codes, quals, lens, pw = batch
     G = len(gen.codes)
     cands = np.array([[-40, -1, 0, 13], [G - 30, G - 1, G, G + 50]], np.int32)
-    got = tm.windows_for(T(cands), T(gen.codes), cfg)
+    got = tm.windows_for(T(cands), T(gen.codes), to_port(cfg))
     _eq(got, jm.windows_for(cands, gen.codes, cfg))

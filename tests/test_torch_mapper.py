@@ -3,7 +3,8 @@ JAX package, exactly: equal ReadHits (strand, pos, score, cigar, weight),
 an equal device blob, and byte-equal golden SAM / SGR / SGREX files (the
 CLI runs the device finish; the host finish is TorchMapper(...,
 finish_impl="host")).  The CPU runs the plain torch versions of the
-kernels; no test here needs a card."""
+kernels; no test here needs a card.  The port takes its own classes: the
+JAX package's values are rebuilt from their fields (test_torch_bridge.to_port)."""
 
 import hashlib
 import io
@@ -19,10 +20,13 @@ from gnumap_tpu.io import fastq as io_fastq, sam as sam_io
 from gnumap_tpu.pipeline import mapper as jm
 from gnumap_tpu.utils import sim
 from gnumap_tpu_torch.cli import main as tcli
+from gnumap_tpu_torch.index import store as tstore
+from gnumap_tpu_torch.native import lib as tnative_lib
 from gnumap_tpu_torch.pipeline import checkpoint as tck
 from gnumap_tpu_torch.pipeline import mapper as tm
 
 from conftest import records_from_sim
+from test_torch_bridge import port_iter, to_port
 
 torch.set_num_threads(1)
 
@@ -42,17 +46,27 @@ def phix(small_cfg, phix_genome):
     return gen, idx
 
 
-def test_map_batch_equals_tpu_mapper_jnp(small_cfg, phix, phix_reads):
+@pytest.fixture(scope="module")
+def tcfg(small_cfg):
+    return to_port(small_cfg)
+
+
+@pytest.fixture(scope="module")
+def tphix(phix):
+    return to_port(phix)
+
+
+def test_map_batch_equals_tpu_mapper_jnp(small_cfg, phix, tcfg, tphix,
+                                         phix_reads):
     gen, idx = phix
     ref = jm.TpuMapper(gen, idx, small_cfg, align_impl="jnp")
-    port = tm.TorchMapper(gen, idx, small_cfg, device="cpu",
-                          finish_impl="host")
+    port = tm.TorchMapper(*tphix, tcfg, device="cpu", finish_impl="host")
     recs = records_from_sim(phix_reads, small_cfg)
     n = 0
     for batch in io_fastq.batch_reads(iter(recs), small_cfg):
         s_ref, s_port = jm.BatchStats(), tm.BatchStats()
         want = ref.map_batch(batch, s_ref)
-        got = port.map_batch(batch, s_port)
+        got = port.map_batch(to_port(batch), s_port)
         assert _hits(got) == _hits(want)
         for f in ("n_reads", "n_mapped", "n_multi", "n_candidates",
                   "dp_cells", "dp_cells_banded"):
@@ -79,11 +93,13 @@ def test_blob_and_hits_equal_pallas_host_finish(phix_genome):
     assert batch.pwm_arr is None
     ref = jm.TpuMapper(gen, idx, cfg, align_impl="pallas",
                        finish_impl="host")
-    port = tm.TorchMapper(gen, idx, cfg, device="cpu", finish_impl="host")
+    port = tm.TorchMapper(*to_port((gen, idx, cfg)), device="cpu",
+                          finish_impl="host")
     want_blob = np.asarray(ref.submit(batch).result())
-    got_blob, _ = port.submit(batch)
+    got_blob, _ = port.submit(to_port(batch))
     assert np.array_equal(got_blob.numpy(), want_blob)
-    assert _hits(port.map_batch(batch)) == _hits(ref.map_batch(batch))
+    assert _hits(port.map_batch(to_port(batch))) == \
+        _hits(ref.map_batch(batch))
 
 
 def _sha(path):
@@ -112,12 +128,11 @@ def test_cli_reproduces_golden_outputs(tmp_path):
         assert _sha(str(tmp_path / f"phix.{ext}")) == golden[f"phix.{ext}"]
 
 
-def test_cuda_without_card_raises(small_cfg, phix):
+def test_cuda_without_card_raises(tcfg, tphix):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
-    gen, idx = phix
     with pytest.raises(RuntimeError, match="no CUDA card"):
-        tm.TorchMapper(gen, idx, small_cfg, device="cuda")
+        tm.TorchMapper(*tphix, tcfg, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         tcli.main(["-g", os.path.join(ROOT, "testdata", "phix_sim.fa"),
                    "-o", "unused", "-m", "8", "-L", "40",
@@ -154,8 +169,8 @@ def test_mapper_unported_configs_raise(phix_genome):
     gen = builder.Genome.from_contigs([("phiX_sim", phix_genome)])
     cfg_bs = MapperConfig(mer_size=8, max_read_len=40, bisulfite=True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tm.TorchMapper(gen, builder.build_bs_index(gen, cfg_bs), cfg_bs,
-                       device="cpu")
+        tm.TorchMapper(*to_port((gen, builder.build_bs_index(gen, cfg_bs),
+                                 cfg_bs)), device="cpu")
     # unbanded scoring (gap_slack >= 14) is ported: it maps, and its device
     # finish gives the host finish's hits
     cfg_wide = MapperConfig(mer_size=8, max_read_len=40, gap_slack=16,
@@ -164,22 +179,24 @@ def test_mapper_unported_configs_raise(phix_genome):
     idx = builder.build_index(gen, cfg_wide)
     reads = sim.simulate_reads(phix_genome, 16, 36, seed=3, sub_rate=0.02,
                                indel_rate=0.2, contig="phiX_sim")
-    batch = next(io_fastq.batch_reads(
-        iter(records_from_sim(reads, cfg_wide)), cfg_wide))
-    got = tm.TorchMapper(gen, idx, cfg_wide, device="cpu").map_batch(batch)
-    want = tm.TorchMapper(gen, idx, cfg_wide, device="cpu",
+    batch = to_port(next(io_fastq.batch_reads(
+        iter(records_from_sim(reads, cfg_wide)), cfg_wide)))
+    args = to_port((gen, idx, cfg_wide))
+    got = tm.TorchMapper(*args, device="cpu").map_batch(batch)
+    want = tm.TorchMapper(*args, device="cpu",
                           finish_impl="host").map_batch(batch)
     assert _hits(got) == _hits(want) and sum(map(bool, got)) >= 8
 
 
-def test_device_state_loads_saved_index(small_cfg, phix, tmp_path):
-    """A .npz from index/store.save_index loads straight into
-    device_state (the port's device-resident "weights")."""
+def test_device_state_loads_saved_index(tcfg, phix, tmp_path):
+    """A .npz from the JAX package's index/store.save_index loads, through
+    the port's store, straight into device_state (the port's
+    device-resident "weights")."""
     gen, idx = phix
     path = str(tmp_path / "idx.npz")
     store.save_index(path, gen, idx)
-    gen2, idx2 = store.load_index(path)
-    st = tm.device_state(gen2, idx2, small_cfg, "cpu")
+    gen2, idx2 = tstore.load_index(path)
+    st = tm.device_state(gen2, idx2, tcfg, "cpu")
     assert np.array_equal(st["bucket_start"].numpy(), idx.bucket_start)
     assert np.array_equal(st["positions"].numpy(), idx.positions)
     assert np.array_equal(st["g_codes"].numpy(), gen.codes)
@@ -190,19 +207,19 @@ class Boom(Exception):
     pass
 
 
-def test_checkpoint_resume_equals_uninterrupted(small_cfg, phix,
+def test_checkpoint_resume_equals_uninterrupted(small_cfg, tcfg, tphix,
                                                 phix_genome, tmp_path):
     """Kill/restart: a checkpointed run interrupted after batch 3 and
     resumed from disk writes the same SAM and coverage as one that was not
     interrupted."""
-    gen, idx = phix
-    m = tm.TorchMapper(gen, idx, small_cfg, device="cpu")
+    gen, idx = tphix
+    m = tm.TorchMapper(gen, idx, tcfg, device="cpu")
     reads = sim.simulate_reads(phix_genome, 160, 36, seed=9, sub_rate=0.02,
                                contig="phiX_sim")
 
     def batches():
-        return io_fastq.batch_reads(iter(records_from_sim(reads, small_cfg)),
-                                    small_cfg)
+        return port_iter(io_fastq.batch_reads(
+            iter(records_from_sim(reads, small_cfg)), small_cfg))
 
     with open(tmp_path / "ref.sam", "w") as f:
         sam_io.write_header(f, gen.names, gen.lengths, cmd="x")
@@ -229,20 +246,19 @@ def test_checkpoint_resume_equals_uninterrupted(small_cfg, phix,
     assert res.stats.n_reads == ref.stats.n_reads == 160
 
 
-def test_map_stream_python_sam_equals_native(small_cfg, phix, phix_reads,
-                                             monkeypatch):
+def test_map_stream_python_sam_equals_native(small_cfg, tcfg, tphix,
+                                             phix_reads, monkeypatch):
     """map_stream's per-record io/sam.py path and the native batch
     formatter write the same SAM records."""
-    gen, idx = phix
-    m = tm.TorchMapper(gen, idx, small_cfg, device="cpu")
+    m = tm.TorchMapper(*tphix, tcfg, device="cpu")
 
     def run():
-        return tm.map_stream(m, io_fastq.batch_reads(
-            iter(records_from_sim(phix_reads, small_cfg)), small_cfg))
+        return tm.map_stream(m, port_iter(io_fastq.batch_reads(
+            iter(records_from_sim(phix_reads, small_cfg)), small_cfg)))
 
+    assert tnative_lib.available()
     native = "".join(run().sam_lines)
-    from gnumap_tpu.native import lib as native_lib
-    monkeypatch.setattr(native_lib, "available", lambda: False)
+    monkeypatch.setattr(tnative_lib, "available", lambda: False)
     py = run()
     assert "".join(py.sam_lines) == native
     assert py.stats.n_reads == len(phix_reads)

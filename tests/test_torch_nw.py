@@ -18,6 +18,8 @@ from gnumap_tpu.oracle import oracle
 from gnumap_tpu_torch import _build
 from gnumap_tpu_torch.align import nw_band, nw_ref
 
+from test_torch_cuda import LIVE_SETS, live_set
+
 torch.set_num_threads(1)
 
 SENT = nw_pallas.SENTINEL
@@ -90,6 +92,37 @@ def test_plain_banded_matches_pallas_jnp_oracle(L, C, B2, G, seed):
     assert np.array_equal(got[valid], ref[valid])
     wins = _windows(genome, cands, cfg)
     for b, c in zip(*np.nonzero(valid)):
+        expect = oracle.nw_align(emis[b, :lens[b]], wins[b, c].astype(np.int8),
+                                 cfg)
+        assert got[b, c] == expect, (b, c)
+
+
+@pytest.mark.parametrize("name", LIVE_SETS)
+def test_plain_banded_live_sets_match_pallas_and_oracle(name):
+    """Scattered SENTINELs and mixed lengths (0, 1, L): the plain version
+    equals the Pallas kernel in interpret mode on every slot and the oracle
+    on every live pair, and gives NEG_INF at every dead slot."""
+    L, C, B2, G = 24, 8, 8, 600
+    cfg = MapperConfig(max_read_len=L)
+    rng = np.random.default_rng(41)
+    genome, emis, _, _, W = _setup(rng, B2, C, L, G, cfg)
+    cands, lens = live_set(name, rng, B2, C, L, G)
+    emis = np.where((np.arange(L)[None, :] < lens[:, None])[:, :, None],
+                    emis, 0).astype(np.int32)
+    boff, bw = cfg.band()
+    got = _plain_banded(emis, cands, lens, genome, cfg)
+    pallas = np.asarray(nw_pallas.nw_scores_banded(
+        np.ascontiguousarray(emis.transpose(0, 2, 1)), cands, lens,
+        nw_pallas.pad_genome_words(genome, W), L=L, W=W,
+        slack=cfg.gap_slack, boff=boff, bw=bw, open_q=cfg.gap_open_q(),
+        ext_q=cfg.gap_extend_q(), interpret=True, rpt=8))
+    assert np.array_equal(got, pallas)
+    live = (cands != SENT) & (lens > 0)[:, None]
+    assert (got[~live] == NEG_INF).all()
+    assert live.sum() == {"all_live": B2 * C, "one_per_row": B2,
+                          "none_live": 0}.get(name, live.sum())
+    wins = _windows(genome, cands, cfg)
+    for b, c in zip(*np.nonzero(live)):
         expect = oracle.nw_align(emis[b, :lens[b]], wins[b, c].astype(np.int8),
                                  cfg)
         assert got[b, c] == expect, (b, c)

@@ -29,6 +29,7 @@ from gnumap_tpu_torch.pipeline import mapper as tm
 
 from conftest import records_from_sim
 from test_devtb import _mk_hits
+from test_torch_bridge import port_iter, to_port
 
 torch.set_num_threads(1)
 
@@ -181,12 +182,12 @@ def test_unbanded_device_blob_equals_pallas():
     cfg, gen, idx, recs = _unbanded_workload()
     ref = jm.TpuMapper(gen, idx, cfg, align_impl="pallas",
                        finish_impl="device")
-    port = tm.TorchMapper(gen, idx, cfg, device="cpu")
+    port = tm.TorchMapper(*to_port((gen, idx, cfg)), device="cpu")
     n_indel = n_keep = 0
     for b in io_fastq.batch_reads(iter(recs), cfg):
         for bb in (b, dataclasses.replace(b, pwm_arr=None)):
             want = np.asarray(ref.submit(bb).result())
-            got, _ = port.submit(bb)
+            got, _ = port.submit(to_port(bb))
             assert np.array_equal(got.numpy(), want)
         n_keep += int(want[-3])
         n_indel += int(want[-1])
@@ -198,15 +199,17 @@ def test_unbanded_map_stream_equals_jax_and_host_finish():
     finish and the JAX device finish give the same SAM records and SGR
     bytes."""
     cfg, gen, idx, recs = _unbanded_workload()
+    targs = to_port((gen, idx, cfg))
     out = {}
     for name, m in (
             ("jax", jm.TpuMapper(gen, idx, cfg, align_impl="pallas",
                                  finish_impl="device")),
-            ("device", tm.TorchMapper(gen, idx, cfg, device="cpu")),
-            ("host", tm.TorchMapper(gen, idx, cfg, device="cpu",
+            ("device", tm.TorchMapper(*targs, device="cpu")),
+            ("host", tm.TorchMapper(*targs, device="cpu",
                                     finish_impl="host"))):
-        mod = jm if name == "jax" else tm
-        res = mod.map_stream(m, io_fastq.batch_reads(iter(recs), cfg))
+        batches = io_fastq.batch_reads(iter(recs), cfg)
+        res = (jm.map_stream(m, batches) if name == "jax"
+               else tm.map_stream(m, port_iter(batches)))
         out[name] = ("".join(res.sam_lines), _sgr(gen, res.coverage),
                      res.stats.n_mapped)
     assert out["device"] == out["jax"] == out["host"]
