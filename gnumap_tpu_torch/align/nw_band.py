@@ -74,21 +74,6 @@ def check_tensor(name, t, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def resident_blocks(bw: int, C: int, L: int) -> int:
-    """Blocks of the kernel (128 threads each) that the CUDA runtime keeps
-    resident on one multiprocessor at this band width and shape: what the
-    build's registers and the block's shared memory allow."""
-    from gnumap_tpu_torch import _build
-    fn = _build.load("nw_band").nw_band_resident_blocks
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 3
-    n = fn(bw, C, L)
-    if n < 0:
-        raise ValueError(f"nw_band kernel: no occupancy for bw = {bw}, "
-                         f"C = {C}, L = {L} (code {n})")
-    return n
-
-
 def nw_scores_banded(emis_t: torch.Tensor, cands: torch.Tensor,
                      lens: torch.Tensor, genome: torch.Tensor, *, L: int,
                      W: int, slack: int, boff: int, bw: int, open_q: int,

@@ -26,15 +26,18 @@
 //     (false, 0) at once, as the reference's epilogue does for them.
 //
 // What bounds it: the int32 instruction rate.  A live hit (not SENTINEL,
-// 0 < len <= L, score > 0) costs len rows of BW band cells; a cell is B1's
-// 5 DPX instructions, one more VIADDMNMX for gl and 2 integer instructions
-// for the emission's address (byte extract, multiply-add), 8 in all, then
-// the shared load; besides 5 global loads per row.  So
-//   bound = live hits x len x BW x 8 / 16.7e12 int32 operations a second,
+// 0 < len <= L, score > 0) costs len rows of BW band cells.  The fewest
+// instructions a cell needs are B1's 6 (5 DPX and one for the emission's
+// address, which nw_band.cu forms with a single IDP.4A) and one more
+// VIADDMNMX for gl, 7 in all.  So
+//   bound = live hits x len x BW x 7 / 16.7e12 int32 operations a second,
 // or the bytes (tables, candidates, lengths and scores in, pure and jfin out)
-// over 3.35 TB/s where that is larger.  The band state is register-resident;
-// at bw 62 (gap_slack 13) D, T and gl need about 190 registers, so a spill
-// there is possible (the build reports it).
+// over 3.35 TB/s where that is larger.  This kernel spends 8 a cell: its
+// per-thread staging column takes 2 instructions for the address (byte
+// extract, multiply-add), then the shared load; besides 5 global loads per
+// row.  The band state is register-resident; at bw 62 (gap_slack 13) D, T
+// and gl need about 190 registers, so a spill there is possible (the build
+// reports it).
 //
 // C interface (ctypes): nw_pure_launch(...) returns cudaGetLastError() after
 // the launch, -1 for an unsupported band width, -2 for bad sizes.  It

@@ -33,9 +33,19 @@
 //     reference does for slots that never start a backwalk.
 //
 // What bounds it: the int32 instruction rate.  A live hit (not SENTINEL,
-// 0 < len <= L) costs len rows of W cells; the least a cell needs is the
-// banded cell's 6 integer instructions (nw_band_row.cuh: 5 DPX and the
-// emission's address) and one per direction bit, 10 in all.  So
+// 0 < len <= L) costs len rows of W cells.  The fewest instructions a cell
+// needs, whatever a kernel's layout: the recurrence's 6 (nw_band_row.cuh: 4
+// add-max, 1 three-way max, 1 for the emission's address) and 4 compares.
+// The 4 direction bits are the outcomes of 4 comparisons of different 32-bit
+// operand pairs (M - open against Ix - ext; M - open against Iy - ext; which
+// of M, Ix, Iy the diagonal maximum equals takes two), so they are 4
+// independent bits.  The DPX instructions return the maximum and not which
+// side won, an integer compare decides one comparison (its second predicate
+// is the complement of the first), and the packed compares that decide
+// several at once are 16 bits wide where a score needs 26.  So one compare
+// per bit, none of them free, 10 in all.  Moving the outcomes into a word
+// and packing nibbles is not counted (one predicate-to-register move can
+// carry several cells' outcomes), so the count leans low, as a bound may.
 //   bound = live hits x len x W x 10 / 16.7e12 int32 operations a second,
 // or the bytes over 3.35 TB/s where that is larger: each live hit's emission
 // table and window, candidates and lengths in, ops and jfin out, and half a

