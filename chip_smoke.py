@@ -10,8 +10,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   device     card name and power limit; the native host library built from
              gnumap_tpu_torch/native/*.cpp and loaded (fails if it is not)
   build      nvcc of every csrc/*.cu kernel, in parallel; ptxas registers
-             and spills; B1's resident blocks per multiprocessor and the
-             DPX instructions in its SASS (cuobjdump)
+             and spills; resident warps per multiprocessor of B1 and B4 and
+             resident hits of B3 (the occupancy API); opcode counts in the
+             SASS of B1 (bw 42), B4 and B3 (W 144) and banded B3 (W 128)
   kernel_b1  csrc/nw_band.cu vs its plain torch version on the card at the
              map path's shapes (B2 = 16384 read-strands, C = 32, L = 104,
              band (9, 42)) plus edge rows; a sample vs oracle.nw_align;
@@ -26,13 +27,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              oracle.nw_align(traceback=True); gap_slack 0, 1, 13 and a
              harsh scoring; CUDA-event timings
   kernel_b3  csrc/nw_tb.cu on the same slots, the same way; then unbanded
-             (band=None) on such slots at gap_slack 16 (and 14, 30)
+             (band=None) on such slots at gap_slack 16 (and 14, 30); then
+             five sets of live hit slots (all, half at random, a live prefix
+             of 5%, none, mixed lengths with 0, 1, L and L + 1), with the
+             band mask (W 128, band (9, 42)) and without (W 144): vs plain,
+             dead slots ops 0 and jfin 0, time, bound
   kernel_b4  csrc/nw_full.cu (unbanded scoring) as kernel_b1, at gap_slack
-             16 (16,384 x 32), then 14, 30 and the harsh scoring
+             16 (16,384 x 32), then 14, 30 and the harsh scoring; then
+             kernel_b1's six live-slot sets at W 144, 140 and 172
   kernel_b5  csrc/accum_rmw.cu vs its serial plain version, bit for bit,
              on synthetic deltas with pileups and overlapping spans, both
              rowmuls, span starts sorted and in any order; a repeat launch
-             gives the same bits; CUDA-event timings
+             gives the same bits; CUDA-event timings, beside index_add_ and
+             its deterministic form (whose bits are held to the plain
+             version's and to a repeat call's)
   map        16,384 simulated 100 bp reads against a 4,641,652-base genome
              through the port's CLI (main(argv), --device cuda, device
              finish), SAM and SGR on; reads/s, mapped rate, accuracy from
@@ -43,7 +51,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              equal SAM bodies and SGR bytes; reads/s of both finishes
   map_indel  1,024 reads at indel_rate 0.02, mapped with the device finish
              on the card and on the CPU and with the host finish on the
-             card: equal SAM bodies and SGR bytes, n_indel > 0
+             card: equal SAM bodies and SGR bytes, n_indel > 0; banded B3
+             on the inputs of the card run's first call (the one map path
+             where it has live hits): vs plain, time, bound
   parity     the first 1,024 reads mapped with --device cuda and
              --device cpu (device finish): equal SAM bodies and SGR bytes
   map_unbanded  the map phase's reads through TorchMapper(MapperConfig(
@@ -121,6 +131,8 @@ FULL = ((14, {}), (30, {}),
         (16, dict(mismatch_score=-8.0, gap_open=1.0, gap_extend=0.5)))
 # gap_slack of the live-slot sets of kernel_b1: band widths 42, 26 and 62
 LIVE_SET_SLACKS = (8, 4, 13)
+# gap_slack of the live-slot sets of kernel_b4: window widths 144, 140, 172
+FULL_SET_SLACKS = (16, 14, 30)
 # The card's published peaks (NVIDIA H100 SXM data sheet): int32 is 64 lanes
 # per multiprocessor per clock, half the 67 TFLOP/s float32 rate.
 INT32_OPS = 16.7e12
@@ -131,6 +143,10 @@ HBM_BYTES = 3.35e12
 # recurrence's 5 DPX instructions plus 1 for the emission's address; B2 adds
 # 1 for the gapless sum; B3 adds 4 compares, one per direction bit.
 CELL_OPS = {"nw_band": 6, "nw_pure": 7, "nw_full": 6, "nw_tb": 10}
+# opcodes the build phase counts in a kernel's SASS
+SASS_OPS = ("VIADDMNMX", "VIMNMX3", "VIMNMX", "IDP", "LDS", "STS", "IADD3",
+            "IMAD", "LOP3", "SHF", "SEL", "ISETP", "SHFL", "PRMT", "LDG",
+            "STL", "LDL")
 
 
 def emit(phase: str, **kw) -> None:
@@ -263,7 +279,8 @@ def check_b1(rng, genome_np, genome_t, B2, C, cfg, n_oracle, reps):
 def kernel_bound(name, a, kw):
     """The least time the card could take for what these inputs need: the
     live work (pairs, hits or deltas that are not SENTINEL or padding), its
-    DP cells times CELL_OPS over the int32 rate (B5: one float add per
+    DP cells (len x bw with a band, B3's banded call included, len x W
+    without) times CELL_OPS over the int32 rate (B5: one float add per
     element), and the bytes it must move (each live input read once, each
     output written once) over the memory rate; bound_ms is the larger."""
     import torch
@@ -301,7 +318,12 @@ def kernel_bound(name, a, kw):
             H = cands.numel()
             nbytes = rows * 5 * L * 4 + n * W + (
                 H * 17 if name == "nw_pure" else H * (12 + 2 * L))
-        width = kw["bw"] if name in ("nw_band", "nw_pure") else W
+        if name in ("nw_band", "nw_pure"):
+            width = kw["bw"]
+        elif name == "nw_tb" and kw["band"] is not None:
+            width = min(W, kw["band"][1])     # the band mask leaves bw a row
+        else:
+            width = W
         cells *= width
         if name == "nw_tb":
             nbytes += cells // 2              # 4 direction bits per cell
@@ -363,10 +385,12 @@ def b1_live_sets(rng, genome_np, B2, C, L):
     }
 
 
-def check_b1_live_sets(rng, genome_np, genome_t, B2, C, n_oracle, reps):
-    """B1 on the live-slot sets at each band width of LIVE_SET_SLACKS: 0
-    mismatches against the plain version and an oracle sample; time, bound
-    and share of the bound for each.  One list of results."""
+def check_b1_live_sets(rng, genome_np, genome_t, B2, C, n_oracle, reps,
+                       slacks=LIVE_SET_SLACKS):
+    """The scoring kernel (B1; B4 where gap_slack leaves no band) on the
+    live-slot sets at each gap_slack of ``slacks``: 0 mismatches against the
+    plain version and an oracle sample; time, bound and share of the bound
+    for each.  One list of results."""
     import numpy as np
     import torch
     from gnumap_tpu_torch.align import nw_band
@@ -379,7 +403,7 @@ def check_b1_live_sets(rng, genome_np, genome_t, B2, C, n_oracle, reps):
         emis_full.transpose(0, 2, 1))).to(dev)
     ogen = oracle.OracleGenome(genome_np, [], np.zeros(1), np.zeros(1))
     results = []
-    for slack in LIVE_SET_SLACKS:
+    for slack in slacks:
         cfg = MapperConfig(max_read_len=L, max_candidates=C, gap_slack=slack)
         kern, plain, kw = score_fns(cfg)
         W = cfg.window_width()
@@ -397,6 +421,11 @@ def check_b1_live_sets(rng, genome_np, genome_t, B2, C, n_oracle, reps):
                                & ((lens > 0) & (lens <= L))[:, None])
             dead = (cands == nw_band.SENTINEL) | ~((lens > 0)
                                                    & (lens <= L))[:, None]
+            # a dead slot is NEG_INF; without a band a valid anchor of a
+            # length-0 read scores 0 (row 0 of the unbanded DP)
+            dead_value = np.where(
+                (cands != nw_band.SENTINEL) & (lens == 0)[:, None]
+                & (cfg.band() is None), 0, -(1 << 29))
             pick = (live[rng.choice(len(live), min(n_oracle, len(live)),
                                     replace=False)] if len(live) else [])
             o_mism = 0
@@ -407,19 +436,22 @@ def check_b1_live_sets(rng, genome_np, genome_t, B2, C, n_oracle, reps):
             r = dict(set=name, gap_slack=slack, band=cfg.band(), B2=B2, C=C,
                      L=L, mismatches=int((got != ref).sum()),
                      max_abs_err=int((got.long() - ref.long()).abs().max()),
-                     dead_not_neg_inf=int((got_np[dead] != -(1 << 29)).sum()),
+                     W=W, dead_not_neg_inf=int(
+                         (got_np[dead] != dead_value[dead]).sum()),
                      positive_scores=int((got_np > 0).sum()),
                      oracle_pairs=len(pick), oracle_mismatches=o_mism,
                      ms=cuda_ms(lambda: kern(*args, **kw), reps))
-            r.update(kernel_bound("nw_band", args, kw))
+            r.update(kernel_bound(
+                "nw_full" if cfg.band() is None else "nw_band", args, kw))
             r["share_of_bound"] = r["bound_ms"] / r["ms"]
             results.append(r)
     return results
 
 
 def sass_summary(so_path, entry):
-    """Opcode counts of one kernel in a built library, from cuobjdump -sass;
-    None when the toolkit has no cuobjdump."""
+    """(opcode counts, SASS text) of the one kernel in a built library whose
+    mangled name holds ``entry``, from cuobjdump -sass; (None, "") when the
+    toolkit has no cuobjdump."""
     import collections
     import re
     exe = shutil.which("cuobjdump") or os.path.join(
@@ -428,27 +460,30 @@ def sass_summary(so_path, entry):
         return None, ""
     text = subprocess.run([exe, "-sass", so_path], capture_output=True,
                           text=True, check=True).stdout
-    counts, inside = collections.Counter(), False
+    counts, inside, lines = collections.Counter(), False, []
     for line in text.splitlines():
         if "Function :" in line:
             inside = entry in line
-        elif inside:
+        if inside:
+            lines.append(line)
             m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_]+)",
                          line)
             if m:
                 counts[m.group(1)] += 1
-    return dict(counts), text
+    return dict(counts), "\n".join(lines) + "\n"
 
 
 def ptxas_summary(log: str) -> dict:
     """nvcc -Xptxas -v output -> {template argument (band width or columns
-    per lane): [registers, spill store bytes]} per kernel instantiation."""
+    per lane; "b" appended for nw_tb's banded instantiation): [registers,
+    spill store bytes]} per kernel instantiation."""
     import re
     out, key = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?ILi(\d+)E", line)
+        m = re.search(r"Compiling entry function '\S*?ILi(\d+)E(Lb1E)?",
+                      line)
         if m:
-            key = m.group(1)
+            key = m.group(1) + ("b" if m.group(2) else "")
             out[key] = [None, 0]
         elif key and "spill stores" in line:
             out[key][1] = int(re.search(r"(\d+) bytes spill stores",
@@ -459,14 +494,15 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
-def tb_inputs(rng, genome, H, cfg):
+def tb_inputs(rng, genome, H, cfg, sentinels=True):
     """Retained-hit slots for B2 and B3, built as
     tests/test_devtb.py::_mk_hits builds them: reads copied from the genome
     with 0-2 substitutions and, for 15% of them, a 1-2 bp insertion or
-    deletion; every 8th slot SENTINEL; 1/16 of the hits copied from the
-    period-4 tandem repeat at TANDEM_AT (several perfect placements in one
-    window, so the smallest-column tie rule decides); 1/16 anchored at
-    each end of the genome (windows partly outside it); a quarter of the
+    deletion; every 8th slot SENTINEL (unless sentinels is False); 1/16 of
+    the hits copied from the period-4 tandem repeat at TANDEM_AT (several
+    perfect placements in one window, so the smallest-column tie rule
+    decides); 1/16 anchored at each end of the genome (windows partly
+    outside it); a quarter of the
     lengths in [L/2, L].  Returns (emis int32[H, L, 5], cands, lens)."""
     import numpy as np
     from gnumap_tpu_torch.align import scoring
@@ -503,8 +539,81 @@ def tb_inputs(rng, genome, H, cfg):
     pw = np.where((np.arange(L)[None, :] < lens[:, None])[:, :, None], pw, 0)
     emis = scoring.emission_int(pw, scoring.normal_matrix(cfg))
     cands = start.astype(np.int32)
-    cands[7::8] = SENTINEL
+    if sentinels:
+        cands[7::8] = SENTINEL
     return emis.astype(np.int32), cands, lens
+
+
+def tb_live_sets(rng, cands, lens, L):
+    """Hit slots of the traceback kernel that differ in which are live:
+    {set name: (cands, lens)} from the anchors and lengths of tb_inputs(...,
+    sentinels=False).  The mapper's compaction leaves the live hits first:
+    "prefix_5pct"."""
+    import numpy as np
+    from gnumap_tpu_torch.align.nw_band import SENTINEL
+    H = len(cands)
+    mixed = lens.copy()
+    edge = rng.random(H)
+    for k, v in enumerate((0, 1, L, L + 1)):
+        mixed[(edge >= 0.05 * k) & (edge < 0.05 * (k + 1))] = v
+    mixed[:4] = (0, 1, L, L + 1)
+
+    def keep(mask):
+        return np.where(mask, cands, SENTINEL).astype(np.int32)
+
+    return {
+        "all_live": (keep(np.ones(H, bool)), lens),
+        "half_random": (keep(rng.random(H) < 0.5), lens),
+        "prefix_5pct": (keep(np.arange(H) < H // 20), lens),
+        "none_live": (keep(np.zeros(H, bool)), lens),
+        "mixed_lengths": (keep(rng.random(H) < 0.5), mixed),
+    }
+
+
+def check_tb_live_sets(rng, genome_np, genome_t, H, reps):
+    """B3 on the live-slot sets, with the band mask (gap_slack 8, W 128,
+    band (9, 42)) and without a band (gap_slack 16, W 144): 0 mismatches
+    against the plain version, dead slots ops 0 and jfin 0; time, bound and
+    share of the bound for each.  One list of results."""
+    import numpy as np
+    import torch
+    from gnumap_tpu_torch.align import nw_band, nw_tb
+    from gnumap_tpu_torch.config import MapperConfig
+    L = 104
+    dev = torch.device("cuda")
+    results = []
+    for slack in (8, 16):
+        cfg = MapperConfig(max_read_len=L, max_candidates=32, gap_slack=slack)
+        emis, cands0, lens0 = tb_inputs(rng, genome_np, H, cfg,
+                                        sentinels=False)
+        emis_t = torch.from_numpy(np.ascontiguousarray(
+            emis.transpose(0, 2, 1))).to(dev)
+        kw = dict(L=L, W=cfg.window_width(), slack=slack, band=cfg.band(),
+                  open_q=cfg.gap_open_q(), ext_q=cfg.gap_extend_q())
+        for name, (cands, lens) in tb_live_sets(rng, cands0, lens0,
+                                                L).items():
+            args = (emis_t, torch.from_numpy(cands).to(dev),
+                    torch.from_numpy(lens).to(dev), genome_t)
+            ops, jfin = nw_tb.nw_traceback(*args, **kw)
+            torch.cuda.synchronize()
+            o_ref, j_ref = nw_tb.nw_traceback_plain(*args, **kw)
+            dead = torch.from_numpy(
+                (cands == nw_band.SENTINEL) | (lens <= 0) | (lens > L)).to(dev)
+            r = dict(set=name, gap_slack=slack, band=cfg.band(), H=H, L=L,
+                     W=kw["W"], mismatches=int(
+                         (ops != o_ref).sum() + (jfin != j_ref).sum()),
+                     max_abs_err=max(
+                         int((ops.long() - o_ref.long()).abs().max()),
+                         int((jfin.long() - j_ref.long()).abs().max())),
+                     dead_not_zero=int((ops[dead] != 0).sum()
+                                       + (jfin[dead] != 0).sum()),
+                     gapped=int((ops != 0).any(dim=1).sum()),
+                     ms=cuda_ms(lambda: nw_tb.nw_traceback(*args, **kw),
+                                reps))
+            r.update(kernel_bound("nw_tb", args, kw))
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+            results.append(r)
+    return results
 
 
 def check_tb_kernels(rng, genome_np, genome_t, H, cfg, n_oracle, reps,
@@ -681,10 +790,12 @@ def file_bytes(path: str) -> bytes:
         return f.read()
 
 
-def map_indel(tmp, fa, genome_str, pl):
+def map_indel(tmp, fa, genome_str, pl, wrappers):
     """1,024 reads at indel_rate 0.02 mapped three ways: device finish on
     the card, device finish on the CPU, host finish on the card.  n_indel
-    sums the indel-bearing hits of the card's device-finish blobs."""
+    sums the indel-bearing hits of the card's device-finish blobs.  Returns
+    (result, B3's Spy on the card's device-finish run): the one map path
+    where the banded traceback has live hits."""
     from gnumap_tpu_torch.utils import sim
     reads = sim.simulate_reads(genome_str, 1024, READ_LEN, seed=11,
                                sub_rate=0.01, indel_rate=0.02,
@@ -698,15 +809,21 @@ def map_indel(tmp, fa, genome_str, pl):
         n_indel.append(int(blob[-1]))
         return real_decode(cfg, B, n, lens, blob)
 
-    outs, res = {}, {}
+    outs, res, spies = {}, {}, {}
     for run, dev, fin in (("cuda_device", "cuda", "device"),
                           ("cpu_device", "cpu", "device"),
                           ("cuda_host", "cuda", "host")):
         o = os.path.join(tmp, run)
         pl.TorchMapper = functools.partial(real_mapper, finish_impl=fin)
         pl.decode_tb_blob = decode if run == "cuda_device" else real_decode
+        argv = ["-g", fa, "-o", o, *CLI_ARGS, "--device", dev, fq]
         try:
-            d = run_cli(["-g", fa, "-o", o, *CLI_ARGS, "--device", dev, fq])
+            if run == "cuda_device":
+                d, launches, spies = drive(lambda: run_cli(argv), ("nw_tb",),
+                                           wrappers)
+                res["launches"] = launches
+            else:
+                d = run_cli(argv)
         finally:
             pl.TorchMapper, pl.decode_tb_blob = real_mapper, real_decode
         outs[run] = (sam_body(o + ".sam"), file_bytes(o + ".sgr"))
@@ -718,7 +835,7 @@ def map_indel(tmp, fa, genome_str, pl):
                      c in x.split("\t")[5] for c in "ID"))
     return dict(reads=1024, sam_equal=len(sams) == 1,
                 sgr_equal=len(sgrs) == 1, n_indel=sum(n_indel),
-                gapped_records=gapped, **res)
+                gapped_records=gapped, **res), spies["nw_tb"]
 
 
 def check_b5(rng, rowmul, order, R, H, reps):
@@ -763,8 +880,21 @@ def check_b5(rng, rowmul, order, R, H, reps):
         out["plain_ms"] = cuda_ms(lambda: accum.apply_deltas_plain(
             pbuf, *args, rowmul=rowmul), 1)
         out.update(kernel_bound("accum", (arr0, *args), dict(rowmul=rowmul)),
-                   library_ms=index_add_ms((arr0, *args), rowmul, reps))
+                   library_ms=index_add_ms((arr0, *args), rowmul, reps),
+                   library_ordered=ordered_index_add((arr0, *args), rowmul,
+                                                     reps, ref))
     return out
+
+
+def index_add_rows(a, rowmul):
+    """(row numbers, delta rows) of B5's inputs, for one library call."""
+    import torch
+    arr, base, deltas, n_real = a
+    n, nrows = int(n_real), deltas.shape[1]
+    rows = (base[:n].long()[:, None] * rowmul
+            + torch.arange(nrows, device=base.device)).flatten()
+    ok = rows < arr.shape[0]
+    return rows[ok], deltas[:n].reshape(-1, 128)[ok]
 
 
 def index_add_ms(a, rowmul, reps):
@@ -772,15 +902,31 @@ def index_add_ms(a, rowmul, reps):
     copy of the accumulator.  It sums in no fixed order, so its bits differ
     from B5's from run to run: a time to set beside B5's, not a function the
     port could call."""
-    import torch
-    arr, base, deltas, n_real = a
-    n, nrows = int(n_real), deltas.shape[1]
-    rows = (base[:n].long()[:, None] * rowmul
-            + torch.arange(nrows, device=base.device)).flatten()
-    ok = rows < arr.shape[0]
-    rows, src = rows[ok], deltas[:n].reshape(-1, 128)[ok]
-    buf = arr.clone()
+    rows, src = index_add_rows(a, rowmul)
+    buf = a[0].clone()
     return cuda_ms(lambda: buf.index_add_(0, rows, src), reps)
+
+
+def ordered_index_add(a, rowmul, reps, plain_out):
+    """The same library call in its deterministic form
+    (torch.use_deterministic_algorithms(True) around index_add_): its time,
+    whether its f32 bits equal the serial plain version's (plain_out) and
+    whether a repeat call gives the same bits.  A like-for-like yardstick
+    for B5's ordered add; the port never calls it."""
+    import torch
+    rows, src = index_add_rows(a, rowmul)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        got = [a[0].clone().index_add_(0, rows, src) for _ in range(2)]
+        buf = a[0].clone()
+        ms = cuda_ms(lambda: buf.index_add_(0, rows, src), reps)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    bits = [g.view(torch.int32) for g in got]
+    return dict(ms=ms, bits_equal_plain=bool(torch.equal(
+        bits[0], plain_out.view(torch.int32))),
+        repeat_equal=bool(torch.equal(bits[0], bits[1])))
 
 
 def drive(fn, names, wrappers):
@@ -804,6 +950,7 @@ def main_path_check(name, spy, plain):
     its accumulator in place, so each of its runs gets a copy."""
     import torch
     a, kw = spy.first
+    extra = {}
     if name == "accum":
         got = (spy.real(a[0].clone(), *a[1:], **kw),)
         ref = (plain(a[0].clone(), *a[1:], **kw),)
@@ -814,6 +961,8 @@ def main_path_check(name, spy, plain):
         ms = cuda_ms(lambda: spy.real(buf, *a[1:], **kw), 20)
         pms = cuda_ms(lambda: plain(pbuf, *a[1:], **kw), 1)
         lib = index_add_ms(a, kw["rowmul"], 20)
+        extra = dict(library_ordered=ordered_index_add(a, kw["rowmul"], 20,
+                                                       ref[0]))
     else:
         got, ref = spy.real(*a, **kw), plain(*a, **kw)
         got = got if isinstance(got, tuple) else (got,)
@@ -826,7 +975,7 @@ def main_path_check(name, spy, plain):
         lib = None
     bound = kernel_bound(name, a, kw)
     return dict(shape=list(a[1].shape), ms=ms, plain_ms=pms, library_ms=lib,
-                mismatches=mism, max_abs_err=err, **bound,
+                mismatches=mism, max_abs_err=err, **bound, **extra,
                 share_of_bound=bound["bound_ms"] / ms)
 
 
@@ -1009,8 +1158,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated phases to run")
     ap.add_argument("--sass-out", default=None,
-                    help="write cuobjdump -sass of the banded kernel's "
-                         "library to this file")
+                    help="write cuobjdump -sass of the kernels the build "
+                         "phase counts (B1 at bw 42, B4 and B3 at W 144, "
+                         "banded B3 at W 128) to this file")
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
     t_start = time.perf_counter()
@@ -1063,6 +1213,29 @@ def main(argv=None) -> int:
         raise RuntimeError(f"nw_band: no occupancy at some width: {resident}")
     sass, sass_text = sass_summary(
         os.path.join(_build.BUILD_DIR, "libnw_band.so"), "ILi42E")
+    # B4 and B3 at the widths of the smoke sets (C 32, L 104): resident warps
+    # (B4: blocks of 4 warps; B3: hits, 32 / 16 lanes each, a warp a block)
+    # and the opcodes of the W 144 kernels, whose row is unrolled once
+    full_blocks = _build.load("nw_full").nw_full_resident_blocks
+    tb_hits = _build.load("nw_tb").nw_tb_resident_hits
+    full_resident = {str(W): 4 * full_blocks(W, 32, 104)
+                     for W in (136, 140, 144, 172, 256)}
+    tb_resident = {f"{W}{'b' if b else ''}": tb_hits(W, 104, b)
+                   for W, b in ((128, 1), (136, 0), (140, 0), (144, 0),
+                                (172, 0), (256, 0))}
+    if min(full_resident.values()) <= 0 or min(tb_resident.values()) <= 0:
+        raise RuntimeError(f"nw_full / nw_tb: no occupancy at some width: "
+                           f"{full_resident} {tb_resident}")
+    row_sass = {}
+    for lib, entry in (("nw_full", "nw_full_kernelILi18E"),
+                       ("nw_tb", "nw_tb_kernelILi9ELb0E"),
+                       ("nw_tb", "nw_tb_kernelILi8ELb1E")):
+        counts, text = sass_summary(
+            os.path.join(_build.BUILD_DIR, f"lib{lib}.so"), entry)
+        sass_text += text
+        row_sass[entry] = None if counts is None else dict(
+            {k: counts.get(k, 0) for k in SASS_OPS}, total=sum(
+                counts.values()))
     if args.sass_out and sass_text:
         os.makedirs(os.path.dirname(os.path.abspath(args.sass_out)),
                     exist_ok=True)
@@ -1071,12 +1244,11 @@ def main(argv=None) -> int:
     emit("build", seconds=build_s, sources=_build.sources(), ptxas=ptxas,
          nw_band_resident_warps_per_sm=resident,
          nw_band_bw42_sass=None if sass is None else {
-             k: sass.get(k, 0) for k in ("VIADDMNMX", "VIMNMX3", "VIMNMX",
-                                         "IDP", "LDS", "IADD3", "IMAD",
-                                         "LOP3", "SHF", "PRMT", "LDG",
-                                         "STL", "LDL")},
+             k: sass.get(k, 0) for k in SASS_OPS},
          nw_band_bw42_sass_total=None if sass is None else sum(
-             sass.values()))
+             sass.values()),
+         nw_full_resident_warps_per_sm=full_resident,
+         nw_tb_resident_hits_per_sm=tb_resident, row_sass=row_sass)
 
     genome_str = sim.random_genome(GENOME_LEN, seed=0)
     genome_np = packing.encode(genome_str)
@@ -1170,6 +1342,14 @@ def main(argv=None) -> int:
                                       gap_slack=slack, **extra), 24, 0)
             emit("kernel_b4_width", scoring=extra or "default", **r)
             record("nw_full", r, "kernel_b4")
+        for r in check_b1_live_sets(rng, genome_np, genome_t, 16_384, 32,
+                                    24, 10, FULL_SET_SLACKS):
+            emit("kernel_b4_set", **r)
+            record("nw_full", r, f"kernel_b4 set {r['set']}")
+            if r["dead_not_neg_inf"]:
+                failures.append(f"kernel_b4 set {r['set']} gap_slack "
+                                f"{r['gap_slack']}: a dead slot is not "
+                                "NEG_INF (0 at length 0)")
 
     tb_phases = only & {"kernel_b2", "kernel_b3"}
     if tb_phases:
@@ -1205,6 +1385,14 @@ def main(argv=None) -> int:
                     {"kernel_b3"})["kernel_b3"]
                 emit("kernel_b3_unbanded", **r)
                 record("nw_tb", r, "kernel_b3 unbanded")
+            for r in check_tb_live_sets(rng, genome_k, genome_kt, 16_384,
+                                        10):
+                emit("kernel_b3_set", **r)
+                record("nw_tb", r, f"kernel_b3 set {r['set']}")
+                if r["dead_not_zero"]:
+                    failures.append(f"kernel_b3 set {r['set']} gap_slack "
+                                    f"{r['gap_slack']}: a dead slot has ops "
+                                    "or jfin other than 0")
 
     if "kernel_b5" in only:
         rng = np.random.default_rng(5)
@@ -1271,11 +1459,17 @@ def main(argv=None) -> int:
                 failures.append("map_host: host and device finish outputs "
                                 "differ")
         if "map_indel" in only:
-            res = map_indel(tmp, fa, genome_str, pl)
+            res, spy = map_indel(tmp, fa, genome_str, pl, wrappers)
             emit("map_indel", **res)
             if not (res["sam_equal"] and res["sgr_equal"]
                     and res["n_indel"] > 0):
                 failures.append("map_indel")
+            # banded B3 with live hits: the inputs of the run's first call
+            r = main_path_check("nw_tb", spy, plains["nw_tb"])
+            emit("map_indel_nw_tb", **r)
+            record("nw_tb", r, "nw_tb on the map_indel path's inputs")
+            if r["live"] <= 0:
+                failures.append("map_indel: B3 saw no live hit")
         if "parity" in only:
             sub = os.path.join(tmp, "sub.fastq")
             sim.write_fastq(sub, reads[:1024])

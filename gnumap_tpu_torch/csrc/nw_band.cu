@@ -70,29 +70,15 @@
 // the launch, -1 for an unsupported band width, -2 for bad sizes.  It launches
 // on the given stream, does not synchronise and allocates nothing.
 
-#include "nw_band_row.cuh"
+#include "nw_stage.cuh"
 
 namespace {
 
 constexpr int NT = 128;         // threads per block
 constexpr int NWARP = NT / 32;
-constexpr int MAX_ROWS = 16;    // read-strand rows per block
 // Shared memory a block may ask for: above SOFT_SMEM the rows per block are
-// halved (two blocks a multiprocessor stay resident), HARD_SMEM is the card's
-// limit for one block.
+// halved (two blocks a multiprocessor stay resident).
 constexpr size_t SOFT_SMEM = 112 * 1024;
-constexpr size_t HARD_SMEM = 227 * 1024;
-
-// int32 stride between two reads' emission tables: L rows of ECODES, padded
-// to 4 mod 32 so that neighbouring tables start 4 banks apart.
-__host__ __device__ inline int table_stride(int L) {
-  const int s = L * ECODES;
-  return s + (36 - s % 32) % 32;
-}
-
-inline size_t smem_bytes(int R, int C, int L) {
-  return (size_t)R * table_stride(L) * 4 + (size_t)R * 4 + (size_t)R * C * 2;
-}
 
 template <int BW>
 __global__ void __launch_bounds__(NT, BW <= 42 ? 4 : 2)
@@ -109,7 +95,7 @@ nw_band_kernel(const int32_t* __restrict__ emis_t,
   int* s_len = reinterpret_cast<int*>(s_emis + (size_t)R * S);  // R
   unsigned short* s_list =
       reinterpret_cast<unsigned short*>(s_len + R);           // R x C
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int row0 = blockIdx.x * R;
   const int nrows = min(R, B2 - row0);
   const int slots = nrows * C;
@@ -118,43 +104,12 @@ nw_band_kernel(const int32_t* __restrict__ emis_t,
 
   // stage the rows' emission tables: global code-major [5][L] -> [L][6]
   if (tid < nrows) s_len[tid] = lens[row0 + tid];
-  const int32_t* eg = emis_t + (size_t)row0 * 5 * L;
-  for (int k = tid; k < nrows * 5 * L; k += NT) {
-    const int r = k / (5 * L), rem = k - r * 5 * L;
-    const int v = rem / L, i = rem - v * L;
-    s_emis[r * S + i * ECODES + v] = eg[k];
-  }
-  for (int k = tid; k < nrows * L; k += NT) {
-    const int r = k / L, i = k - r * L;
-    s_emis[r * S + i * ECODES + 5] = DEEP;
-  }
+  stage_tables<NT>(s_emis, emis_t + (size_t)row0 * 5 * L, nrows, L, S, tid);
   __syncthreads();
 
   // compact the live slots into s_list, in slot order; NEG_INF to the rest
-  int n = 0;
-  for (int base = 0; base < slots; base += NT) {
-    const int slot = base + tid;
-    bool live = false;
-    if (slot < slots) {
-      const int len = s_len[slot / C];
-      live = cg[slot] != SENTINEL && len > 0 && len <= L;
-      if (!live) og[slot] = NEG_INF;
-    }
-    const unsigned bal = __ballot_sync(0xffffffffu, live);
-    if (lane == 0) s_wcnt[warp] = __popc(bal);
-    __syncthreads();
-    int before = n;
-#pragma unroll
-    for (int w = 0; w < NWARP; ++w) {
-      const int cnt = s_wcnt[w];
-      if (w < warp) before += cnt;
-      n += cnt;
-    }
-    if (live)
-      s_list[before + __popc(bal & ((1u << lane) - 1u))] =
-          (unsigned short)slot;
-    __syncthreads();
-  }
+  const int n = compact_live<NT, false>(cg, og, s_len, s_list, s_wcnt, slots,
+                                        C, L);
 
   const auto none = [](int, int, int, int) {};
   for (int k = tid; k < n; k += NT) {
@@ -208,17 +163,6 @@ cudaError_t launch(const int32_t* emis_t, const int32_t* cands,
   return cudaGetLastError();
 }
 
-// Rows per block and its shared memory: the list holds 16-bit slot numbers,
-// and the tables of R rows must fit.  False when even one row does not.
-inline bool block_shape(int C, int L, int* R, size_t* smem) {
-  if (L <= 0 || C <= 0 || C > 65535) return false;
-  *R = MAX_ROWS;
-  while (*R > 1 && (*R * C > 65535 || smem_bytes(*R, C, L) > SOFT_SMEM))
-    *R >>= 1;
-  *smem = smem_bytes(*R, C, L);
-  return *smem <= HARD_SMEM;
-}
-
 template <int BW>
 int resident_blocks(size_t smem) {
   int n = 0;
@@ -245,7 +189,7 @@ int resident_blocks(size_t smem) {
 extern "C" int nw_band_resident_blocks(int bw, int C, int L) {
   int R;
   size_t smem;
-  if (!block_shape(C, L, &R, &smem)) return -2;
+  if (!block_shape(C, L, SOFT_SMEM, &R, &smem)) return -2;
   switch (bw) {
 #define NW_BAND_CASE(N) \
   case N:               \
@@ -265,7 +209,7 @@ extern "C" int nw_band_launch(const void* emis_t, const void* cands,
   if (B2 <= 0 || C <= 0) return 0;
   int R;
   size_t smem;
-  if (!block_shape(C, L, &R, &smem)) return -2;
+  if (!block_shape(C, L, SOFT_SMEM, &R, &smem)) return -2;
   const auto* e = static_cast<const int32_t*>(emis_t);
   const auto* cd = static_cast<const int32_t*>(cands);
   const auto* ln = static_cast<const int32_t*>(lens);

@@ -1,20 +1,71 @@
-// The full-width DP row shared by the traceback kernel (nw_tb.cu, which
-// also stores 4 direction bits per cell) and the unbanded scoring kernel
-// (nw_full.cu, which does not), so that both run one recurrence: the
-// Pallas _nw_tb_kernel / _nw_kernel body, every term floored at NEG_INF.
+// The full-width DP row shared by the unbanded scoring kernel (nw_full.cu)
+// and the traceback kernel (nw_tb.cu, which also stores 4 direction bits per
+// cell), so that both run one recurrence: the Pallas _nw_kernel /
+// _nw_tb_kernel body, every term floored at NEG_INF.
 //
-// One warp per (read-strand, window) pair.  Lane t owns the K = ceil(W / 32)
-// contiguous window columns c = t K + k (DP column j = c + 1); columns
-// c >= W read the poison code 5, whose emission is NEG_INF, as the Pallas
-// kernel's lanes >= W do, and never feed a column < W (shifts and the
-// prefix max only move right).
-//   * The left shifts of M, Ix and max(M, Ix, Iy) cross lanes with one
-//     __shfl_up_sync each; the Iy prefix max is a per-lane prefix plus a
-//     5-step warp scan.  Column 0 (M = 0 on row 0, then NEG_INF; Ix the
-//     ramp) is a warp-uniform scalar pair (m0, ix0).
-//   * The row's 5 emissions sit in lanes 0..4 (the other lanes hold
-//     NEG_INF); a column's emission is one __shfl_sync from the lane of its
-//     window code.
+// Column space.  A group of G lanes owns one (read-strand, window) pair; the
+// including kernel chooses G (NW_GROUP_LANES: 8 for scoring, 16 for the
+// traceback, whose resident hits the direction store bounds, so that more
+// lanes a hit keep more warps in flight).  Lane g owns the NC = ceil(W / G)
+// contiguous window columns c = g NC + k (DP column j = c + 1) and keeps,
+// for the row it finished last, two register arrays:
+//   D[k] = max(M, Ix, Iy)                  the next row's diagonal
+//                                          predecessor of column c + 1
+//   T[k] = max(M - open, Ix - ext, NEG_INF)   the next row's Ix, same column
+// Columns do not slide, so the lane's window codes are NC fixed bytes of
+// 4 x code (the byte offset of the code's int32 in an emission row), loaded
+// once; columns c >= W hold the poison code 5, whose emission is DEEP, and
+// start at NEG_INF, so they stay at NEG_INF except for the Iy chain that
+// passes through them and never feeds a column < W.
+//
+// One ascending pass per row: the cell is the banded kernel's
+// (nw_band_row.cuh), five DPX instructions and the emission's address,
+//   M    = max(e + d, NEG_INF)       d = the old D of the column to the left
+//   D[k] = max(M, Ix, Iy)            Ix = T[k], Iy = q
+//   mo   = max(M - open, NEG_INF)
+//   q    = max(q - ext, mo)          Iy of the next column
+//   T[k] = max(Ix - ext, mo)
+// with the old D[k] kept one step as the next column's d.  The frozen Iy is
+// the prefix max  Iy[c] = max(max_{c' < c}(M[c'] + (c' + 1) ext) - open
+// - c ext, NEG_INF), floored once; the chain floors where it writes.  Both
+// give the same values: with r the unfloored chain r' = max(r - ext,
+// M - open) and q = max(r, NEG_INF), either r >= NEG_INF and q' = max(r',
+// NEG_INF), or r < NEG_INF and both sides are max(M - open, NEG_INF)
+// (ext >= 0); the same holds for T.  Column 0 never feeds Iy: the chain
+// enters the first strip as NEG_INF.
+//
+// Skew.  Lane g works on row s - g at step s.  What crosses a strip's left
+// edge is two values per row: the left strip's last-column D of the row
+// above (kept when that lane overwrote it) and its q of this row, each by
+// one __shfl_up_sync a step, whatever the group's length: no scan and no
+// shuffle per cell.  A pair of len rows takes len + G - 1 steps.
+//
+// Column 0 (M = 0 on row 0, then NEG_INF; Ix the ramp) is a scalar of the
+// group's first lane: d0 = max(M, Ix) of column 0 on the row above.
+//
+// Band mask ([FROZEN v3], traceback only): DP columns outside [lo, hi] get
+// M = Ix = Iy = NEG_INF, so D and T are NEG_INF there.  The masked columns
+// are a prefix and a suffix of the row; in the prefix every M is NEG_INF, so
+// the chain stays at NEG_INF as the frozen prefix max does, and nothing reads
+// the suffix's chain.
+//
+// Direction bits, stored by the cell that owns the values (DIRS).  Each of
+// the frozen bits of cell (i, j) compares values of a neighbour cell:
+//   bits 0..1  which of M, Ix, Iy of (i - 1, j - 1) is their maximum,
+//              M, then Ix, then Iy on ties
+//   bit  2     M - open >= Ix - ext at (i - 1, j)
+//   bit  3     M - open >= Iy - ext at (i, j - 1)
+// so a cell decides all four about itself when it has its own M, Ix, Iy and
+// D in hand, and the backwalk reads them at the shifted index.  It stores
+// the sign bits of four differences (a nibble s3 s2 s1 s0):
+//   s0 = M < D      s1 = Ix < D      (M's predecessor: 0 if !s0, else 1 if
+//                                     !s1, else 2)
+//   s2 = M - open < Ix - ext         (the complement of bit 2)
+//   s3 = M - open < Iy - ext         (the complement of bit 3)
+// s2 and s3 are taken as u < Ix and u < Iy with u = M - open + ext.  Every
+// difference is of two values in [NEG_INF - open, 2^28 + ext], so its sign
+// is the comparison.  One funnel shift moves a sign bit into the nibble
+// word; four cells make a 16-bit word, the first cell in the top nibble.
 
 #pragma once
 
@@ -22,132 +73,129 @@
 
 namespace {
 
+#ifndef NW_GROUP_LANES
+#error "define NW_GROUP_LANES (lanes per pair: 8 or 16) before nw_full_row.cuh"
+#endif
+
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int G = NW_GROUP_LANES;  // lanes per pair
+constexpr int MAX_W = 256;         // widest window served
+constexpr int MAX_NC = MAX_W / G;  // columns per lane there
 
-// The K window codes of the lane's columns c0 .. c0 + K - 1, 4 bits each.
-template <int K>
-__device__ __forceinline__ unsigned lane_codes(const int8_t* __restrict__ g,
-                                               long long G, long long ws,
-                                               int c0, int W) {
-  unsigned codes = 0;
-#pragma unroll
-  for (int k = 0; k < K; ++k) codes |= code_at(g, G, ws, c0 + k, W) << (4 * k);
-  return codes;
-}
+// 32-bit words of the NC code bytes, and 16-bit words of the NC nibbles.
+__host__ __device__ constexpr int strip_words(int nc) { return (nc + 3) / 4; }
 
-// Row 0: M = 0 on every column, Ix = Iy = NEG_INF; column 0 m0 = 0,
-// ix0 = NEG_INF.
-template <int K>
-__device__ __forceinline__ void full_init(int (&M)[K], int (&Ix)[K],
-                                          int (&Iy)[K], int& m0, int& ix0) {
+// Columns per lane for window width W.
+__host__ __device__ constexpr int strip_cols(int W) { return (W + G - 1) / G; }
+
+// The strip widths a kernel is built for: 1 .. MAX_NC.
+#define NW_STRIP_WIDTHS_16(X)                                             \
+  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) \
+  X(14) X(15) X(16)
+#if NW_GROUP_LANES == 16
+#define NW_STRIP_WIDTHS(X) NW_STRIP_WIDTHS_16(X)
+#elif NW_GROUP_LANES == 8
+#define NW_STRIP_WIDTHS(X)                                                  \
+  NW_STRIP_WIDTHS_16(X)                                                     \
+  X(17) X(18) X(19) X(20) X(21) X(22) X(23) X(24) X(25) X(26) X(27) X(28) \
+  X(29) X(30) X(31) X(32)
+#else
+#error "NW_GROUP_LANES must be 8 or 16"
+#endif
+
+// Row 0 of a strip and its window codes: M = 0, Ix = Iy = NEG_INF on window
+// columns c < W; NEG_INF past them.
+template <int NC>
+__device__ __forceinline__ void strip_init(int (&D)[NC], int (&T)[NC],
+                                           unsigned (&P)[strip_words(NC)],
+                                           const int8_t* __restrict__ g,
+                                           long long Gn, long long ws, int c0,
+                                           int W, int open_q) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    M[k] = 0;
-    Ix[k] = NEG_INF;
-    Iy[k] = NEG_INF;
+  for (int w = 0; w < strip_words(NC); ++w) {
+    unsigned x = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      x |= code4_at(g, Gn, ws, c0 + 4 * w + k, W) << (8 * k);
+    P[w] = x;
   }
-  m0 = 0;
-  ix0 = NEG_INF;
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    const bool in = c0 + k < W;
+    D[k] = in ? 0 : NEG_INF;
+    T[k] = in ? max(-open_q, NEG_INF) : NEG_INF;
+  }
 }
 
-// One DP row i >= 1.  ev is this lane's emission (lanes 0..4: codes 0..4,
-// the others NEG_INF); codes the lane's window codes.  With banded, the
-// [FROZEN v3] mask forces M, Ix and Iy to NEG_INF at DP columns outside
-// [lo, hi].  With DIRS it returns the lane's K direction nibbles:
-//   bits 0..1  M's diagonal predecessor: 0 = M, 1 = Ix, 2 = Iy, preferred in
-//              that order on ties
-//   bit  2     Ix came from M above (M - open >= Ix - ext)
-//   bit  3     Iy opened from M on the left (M - open >= Iy - ext)
-template <int K, bool DIRS>
-__device__ __forceinline__ unsigned full_row(int (&M)[K], int (&Ix)[K],
-                                             int (&Iy)[K], int& m0, int& ix0,
-                                             int ev, unsigned codes, int lane,
-                                             bool banded, int lo, int hi,
-                                             int open_q, int ext_q) {
-  const int c0 = lane * K;
-  // previous row, shifted one column right (lane 0 reads column 0)
-  const int mL = __shfl_up_sync(FULL, M[K - 1], 1);
-  const int ixL = __shfl_up_sync(FULL, Ix[K - 1], 1);
-  const int iyL = __shfl_up_sync(FULL, Iy[K - 1], 1);
-  int Mn[K], Ixn[K];
-  unsigned dir = 0;
-  int run = 0;  // prefix max of Mn + (c + 1) ext within the lane
+// push the sign bit of x into the low end of acc
+__device__ __forceinline__ unsigned push_sign(unsigned acc, int x) {
+  return __funnelshift_l((unsigned)x, acc, 1);
+}
+
+// One DP row over the lane's NC columns.  d: in, the D of the column left of
+// the strip on the row above; out, the strip's last-column D of the row
+// above.  q: in, the Iy chain entering the strip; out, leaving it.
+// emit(word, k) is the row's emission for the column whose code byte is
+// byte k of word.  With BANDED, strip columns outside [klo, khi] are masked.
+// With DIRS, store(w, x) gets the 16-bit word w of the row's nibbles.
+template <int NC, bool DIRS, bool BANDED, class Emit, class Store>
+__device__ __forceinline__ void strip_row(int (&D)[NC], int (&T)[NC],
+                                          const unsigned (&P)[strip_words(NC)],
+                                          int& d, int& q, Emit emit,
+                                          int open_q, int ext_q, int klo,
+                                          int khi, Store store) {
+  const int nopen = -open_q, next = -ext_q;
+  int dprev = d, qq = q;
+  unsigned acc = 0;
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int j = c0 + k + 1;
-    int m_sh, ix_sh, dg;
-    if (k == 0) {
-      m_sh = lane ? mL : m0;
-      ix_sh = lane ? ixL : ix0;
-      dg = lane ? max(max(mL, ixL), iyL) : max(m0, ix0);
-    } else {
-      m_sh = M[k - 1];
-      ix_sh = Ix[k - 1];
-      dg = max(max(M[k - 1], Ix[k - 1]), Iy[k - 1]);
+  for (int k = 0; k < NC; ++k) {
+    const int e = emit(P[k >> 2], k & 3);
+    int mn = addmax(e, dprev, NEG_INF);
+    dprev = D[k];
+    int ixn = T[k];
+    int iy = qq;
+    if constexpr (BANDED) {
+      const bool off = k < klo || k > khi;
+      mn = off ? NEG_INF : mn;
+      ixn = off ? NEG_INF : ixn;
+      iy = off ? NEG_INF : iy;
     }
+    const int dn = max3(mn, ixn, iy);
+    D[k] = dn;
+    const int mo = addmax(mn, nopen, NEG_INF);
+    qq = addmax(iy, next, mo);
+    T[k] = addmax(ixn, next, mo);
     if constexpr (DIRS) {
-      const unsigned m_dir = m_sh == dg ? 0u : (ix_sh == dg ? 1u : 2u);
-      const unsigned ix_bit = (M[k] - open_q) >= (Ix[k] - ext_q) ? 1u : 0u;
-      dir |= (m_dir | (ix_bit << 2)) << (4 * k);
-    }
-    const int e = __shfl_sync(FULL, ev, (codes >> (4 * k)) & 15u);
-    const bool off = banded && (j < lo || j > hi);
-    Mn[k] = off ? NEG_INF : max(e + dg, NEG_INF);
-    Ixn[k] = off ? NEG_INF : max(max(M[k] - open_q, Ix[k] - ext_q), NEG_INF);
-    const int pk = Mn[k] + j * ext_q;
-    run = k ? max(run, pk) : pk;
-  }
-  // warp scan of the lanes' prefix maxima -> the prefix before this lane
-  int scan = run;
-#pragma unroll
-  for (int s = 1; s < 32; s <<= 1) {
-    const int y = __shfl_up_sync(FULL, scan, s);
-    if (lane >= s) scan = max(scan, y);
-  }
-  const int before = __shfl_up_sync(FULL, scan, 1);
-  // Iy[c] = max(pm[c - 1] - open - c ext, NEG_INF), pm[-1] = NEG_INF
-  int Iyn[K];
-  int pm = lane ? before : NEG_INF;  // pm of the column left of c0
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int c = c0 + k;
-    const int j = c + 1;
-    const bool off = banded && (j < lo || j > hi);
-    Iyn[k] = off ? NEG_INF : max(pm - open_q - c * ext_q, NEG_INF);
-    pm = max(pm, Mn[k] + j * ext_q);  // > NEG_INF: lane 0's fill never wins
-  }
-  if constexpr (DIRS) {
-    // Iy-open bit: M[c - 1] - open >= Iy[c - 1] - ext (NEG_INF left of 0)
-    const int mnL = __shfl_up_sync(FULL, Mn[K - 1], 1);
-    const int iynL = __shfl_up_sync(FULL, Iyn[K - 1], 1);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int ml = k ? Mn[k - 1] : (lane ? mnL : NEG_INF);
-      const int il = k ? Iyn[k - 1] : (lane ? iynL : NEG_INF);
-      dir |= ((ml - open_q) >= (il - ext_q) ? 8u : 0u) << (4 * k);
+      // M - open < Iy - ext and M - open < Ix - ext, as u < Iy and u < Ix
+      const int u = mn + (ext_q - open_q);
+      acc = push_sign(acc, u - iy);
+      acc = push_sign(acc, u - ixn);
+      acc = push_sign(acc, ixn - dn);
+      acc = push_sign(acc, mn - dn);
+      if ((k & 3) == 3)
+        store(k >> 2, acc);
+      else if (k == NC - 1)
+        store(k >> 2, acc << (4 * (3 - (k & 3))));
     }
   }
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    M[k] = Mn[k];
-    Ix[k] = Ixn[k];
-    Iy[k] = Iyn[k];
-  }
-  ix0 = max(max(m0 - open_q, ix0 - ext_q), NEG_INF);
-  m0 = NEG_INF;
-  return dir;
+  d = dprev;
+  q = qq;
 }
 
-// The best end value over the window columns c < W: max over the warp of
-// max(M, Ix), the same in every lane.
-template <int K>
-__device__ __forceinline__ int full_best(const int (&M)[K],
-                                         const int (&Ix)[K], int c0, int W) {
-  int best = INT32_MIN;
+// max over the strip's window columns c < W of D, then over the group: the
+// best end value max(M, Ix) of the row (Iy <= M - open of a column to its
+// left, open >= 0, so it never exceeds it).  The same in every lane of the
+// group; every lane of the warp calls it.
+template <int NC>
+__device__ __forceinline__ int group_best(const int (&D)[NC], int c0, int W) {
+  int best = NEG_INF;
 #pragma unroll
-  for (int k = 0; k < K; ++k)
-    if (c0 + k < W) best = max(best, max(M[k], Ix[k]));
-  return __reduce_max_sync(FULL, best);
+  for (int k = 0; k < NC; ++k)
+    if (c0 + k < W) best = max(best, D[k]);
+#pragma unroll
+  for (int s = G / 2; s > 0; s >>= 1)
+    best = max(best, __shfl_xor_sync(FULL, best, s, G));
+  return best;
 }
 
 }  // namespace

@@ -136,6 +136,82 @@ def test_kernel_matches_plain_on_live_sets(name, slack):
     assert (want[dead] == NEG_INF).all() and (want[~dead] > NEG_INF).all()
 
 
+@pytest.mark.parametrize("slack", [16, 14, 30])
+@pytest.mark.parametrize("name", LIVE_SETS)
+def test_full_kernel_matches_plain_on_live_sets(name, slack):
+    """B4 on the card == its plain version on every slot, whatever the
+    SENTINEL placement and the lengths (0, 1, L, L + 1 among them): 40
+    rows, so the last block of 16 rows is ragged and a round of 16 pairs is
+    often not full; window widths 88, 84 and 116 (11, 11 and 15 columns a
+    lane)."""
+    dev = _card()
+    L, C, B2, G = 48, 32, 40, 3000
+    cfg = MapperConfig(max_read_len=L, gap_slack=slack)
+    rng = np.random.default_rng(slack)
+    emis_t, _, _, genome = _inputs(rng, B2, C, L, G, cfg)
+    cands, lens = live_set(name, rng, B2, C, L, G)
+    if name == "mixed_lengths":
+        lens[3] = L + 1
+    lens = torch.from_numpy(lens)
+    emis_t = emis_t * (torch.arange(L)[None, :] < lens[:, None])[:, None, :]
+    args = [emis_t.contiguous(), torch.from_numpy(cands), lens, genome]
+    kw = dict(L=L, W=cfg.window_width(), slack=slack,
+              open_q=cfg.gap_open_q(), ext_q=cfg.gap_extend_q())
+    got = nw_full.nw_scores_full(*(a.to(dev) for a in args), **kw)
+    torch.cuda.synchronize()
+    want = nw_full.nw_scores_full(*args, **kw)
+    assert torch.equal(got.cpu(), want)
+    valid = args[1] != nw_band.SENTINEL
+    assert (want[~valid] == NEG_INF).all()
+    assert (want[valid & (lens == 0)[:, None]] == 0).all()
+    assert (want[valid & (lens > L)[:, None]] == NEG_INF).all()
+    assert (want[valid & ((lens > 0) & (lens <= L))[:, None]] > NEG_INF).all()
+
+
+TB_LIVE_SETS = ("all_live", "half_random", "prefix", "none_live",
+                "mixed_lengths")
+
+
+@pytest.mark.parametrize("slack", [8, 16])
+@pytest.mark.parametrize("name", TB_LIVE_SETS)
+def test_traceback_kernel_matches_plain_on_live_sets(name, slack):
+    """B3 on the card == its plain version on ops and jfin, with the band
+    mask (gap_slack 8) and without a band (gap_slack 16), whichever hit
+    slots are live: all, half at random, a prefix (as the mapper's
+    compaction leaves them), none, and mixed lengths with 0, 1, L and
+    L + 1; 161 slots, so the last block is ragged."""
+    dev = _card()
+    L, H = 48, 161
+    cfg = MapperConfig(max_read_len=L, gap_slack=slack)
+    rng = np.random.default_rng(slack + len(name))
+    args, _ = _hits(rng, H, L, 3000, cfg)
+    cands, lens = args[1].numpy().copy(), args[2].numpy().copy()
+    cands[cands == nw_band.SENTINEL] = 77
+    mask = {"all_live": np.ones(H, bool),
+            "half_random": rng.random(H) < 0.5,
+            "prefix": np.arange(H) < 9,
+            "none_live": np.zeros(H, bool),
+            "mixed_lengths": rng.random(H) < 0.5}[name]
+    cands = np.where(mask, cands, nw_band.SENTINEL).astype(np.int32)
+    if name == "mixed_lengths":
+        lens[:8] = (0, 1, L, L + 1, 1, L, 0, L + 1)
+        cands[:8] = 100 + np.arange(8)
+    elif name != "none_live":
+        lens[lens == 0] = L
+    args[1], args[2] = torch.from_numpy(cands), torch.from_numpy(lens)
+    kw = dict(L=L, W=cfg.window_width(), slack=slack, band=cfg.band(),
+              open_q=cfg.gap_open_q(), ext_q=cfg.gap_extend_q())
+    ops, jf = nw_tb.nw_traceback(*(a.to(dev) for a in args), **kw)
+    torch.cuda.synchronize()
+    wops, wjf = nw_tb.nw_traceback(*args, **kw)
+    assert torch.equal(ops.cpu(), wops) and torch.equal(jf.cpu(), wjf)
+    dead = torch.from_numpy((cands == nw_band.SENTINEL) | (lens <= 0)
+                            | (lens > L))
+    assert not wops[dead].any() and not wjf[dead].any()
+    if name in ("all_live", "half_random"):
+        assert (wops != 0).any(dim=1).sum() > 0
+
+
 def test_kernel_wrapper_checks_inputs():
     dev = _card()
     cfg = MapperConfig(max_read_len=16)
@@ -231,7 +307,7 @@ def test_pure_and_traceback_kernels_match_plain(slack, harsh):
                                            (16, 48, True)])
 def test_full_kernel_matches_plain(slack, L, harsh):
     """B4 == its plain version, exactly: length 0 and L, anchors outside
-    the genome, C > 32, window widths from K = 3 to K = 8 columns per lane
+    the genome, C > 32, window widths from 11 to 32 columns per lane
     (W = 254 at gap_slack 71, L = 104), and a harsh scoring."""
     dev = _card()
     extra = (dict(mismatch_score=-8.0, gap_open=1.0, gap_extend=0.5)
@@ -253,7 +329,7 @@ def test_full_kernel_matches_plain(slack, L, harsh):
 @pytest.mark.parametrize("slack,L", [(16, 48), (16, 104), (30, 104)])
 def test_unbanded_traceback_kernel_matches_plain(slack, L):
     """B3 with band=None == its plain version on ops and jfin, exactly,
-    including K >= 5 columns per lane (13.3 KB of directions per warp)."""
+    from 6 to 11 columns per lane (W 88, 144 and 172)."""
     dev = _card()
     cfg = MapperConfig(max_read_len=L, gap_slack=slack)
     args, _ = _hits(np.random.default_rng(slack + L), 160, L, 3000, cfg)

@@ -3,7 +3,8 @@
 card, on the same inputs, in turns.
 
     python3 tools/torch_kernel_ab.py --parent DIR [DIR ...]
-                                     [--kernel nw_band] [--reps 20]
+                                     [--kernel nw_band|nw_full|nw_tb]
+                                     [--reps 20]
 
 Each DIR holds another checkout of this repository (for example the parent
 commit, unpacked with ``git archive`` into a directory that .gitignore
@@ -41,11 +42,13 @@ def load_chip_smoke():
     return mod
 
 
-def nw_band_sets():
-    """chip_smoke.py's live-slot sets of the banded scoring kernel (16,384
-    read-strands x 32 candidate slots, reads of 100 bases in L = 104, band
-    (9, 42)): (argument names in the wrapper's order, arrays every set
-    shares, {set: its own arrays}, keyword arguments)."""
+def score_sets(gap_slack):
+    """chip_smoke.py's live-slot sets of a scoring kernel (16,384
+    read-strands x 32 candidate slots, reads of 100 bases in L = 104), with
+    a band for nw_band (gap_slack 8: band (9, 42)) and without for nw_full
+    (gap_slack 16: W 144): (argument names in the wrapper's order, arrays
+    every set shares, {set: its own arrays and keyword arguments}, keyword
+    arguments of every set)."""
     import numpy as np
     sys.path.insert(0, ROOT)
     from gnumap_tpu_torch.config import MapperConfig
@@ -56,24 +59,73 @@ def nw_band_sets():
     rng = np.random.default_rng(1)
     genome = packing.encode(sim.random_genome(chip_smoke.GENOME_LEN, seed=0))
     emis, sets = chip_smoke.b1_live_sets(rng, genome, B2, C, L)
-    cfg = MapperConfig(max_read_len=L, max_candidates=C)
-    boff, bw = cfg.band()
+    cfg = MapperConfig(max_read_len=L, max_candidates=C, gap_slack=gap_slack)
     # rows at and past a read's length are left as they are: they must not
     # change a score, and every side gets the same ones
     shared = dict(emis_t=np.ascontiguousarray(emis.transpose(0, 2, 1)),
                   genome=genome)
-    kw = dict(L=L, W=cfg.window_width(), slack=cfg.gap_slack, boff=boff,
-              bw=bw, open_q=cfg.gap_open_q(), ext_q=cfg.gap_extend_q())
+    kw = dict(L=L, W=cfg.window_width(), slack=cfg.gap_slack,
+              open_q=cfg.gap_open_q(), ext_q=cfg.gap_extend_q())
+    if cfg.band() is not None:
+        kw.update(zip(("boff", "bw"), cfg.band()))
     return (("emis_t", "cands", "lens", "genome"), shared,
             {name: dict(cands=c, lens=n) for name, (c, n) in sets.items()},
             kw)
 
 
+def nw_tb_sets():
+    """chip_smoke.py's live-slot sets of the traceback kernel (16,384 hit
+    slots, L = 104; reads with substitutions, 1-2 bp indels and tandem-
+    repeat ties), each with the band mask (gap_slack 8, W 128, band (9, 42))
+    and without a band (gap_slack 16, W 144); returns as score_sets."""
+    import numpy as np
+    sys.path.insert(0, ROOT)
+    from gnumap_tpu_torch.config import MapperConfig
+    from gnumap_tpu_torch.core import packing
+    from gnumap_tpu_torch.utils import sim
+    chip_smoke = load_chip_smoke()
+    H, L = 16_384, 104
+    rng = np.random.default_rng(2)
+    genome = packing.encode(sim.random_genome(chip_smoke.GENOME_LEN, seed=0))
+    at = chip_smoke.TANDEM_AT
+    genome[at:at + 400] = np.tile(np.array([0, 1, 2, 3], np.int8), 100)
+    cfg = MapperConfig(max_read_len=L, max_candidates=32)
+    emis, cands, lens = chip_smoke.tb_inputs(rng, genome, H, cfg,
+                                             sentinels=False)
+    shared = dict(emis_t=np.ascontiguousarray(emis.transpose(0, 2, 1)),
+                  genome=genome)
+    sets = {}
+    for slack in (8, 16):
+        c = MapperConfig(max_read_len=L, max_candidates=32, gap_slack=slack)
+        band = c.band()
+        own = dict(kw_W=c.window_width(), kw_slack=slack,
+                   kw_band=np.array(band if band is not None else [], int))
+        tag = "banded" if band is not None else "unbanded"
+        for name, (cd, ln) in chip_smoke.tb_live_sets(
+                np.random.default_rng(3), cands, lens, L).items():
+            sets[f"{tag}_{name}"] = dict(cands=cd, lens=ln, **own)
+    kw = dict(L=L, open_q=cfg.gap_open_q(), ext_q=cfg.gap_extend_q())
+    return ("emis_t", "cands", "lens", "genome"), shared, sets, kw
+
+
 # kernel -> (module of its wrapper, wrapper, maker of its input sets)
 KERNELS = {
     "nw_band": ("gnumap_tpu_torch.align.nw_band", "nw_scores_banded",
-                nw_band_sets),
+                lambda: score_sets(8)),
+    "nw_full": ("gnumap_tpu_torch.align.nw_full", "nw_scores_full",
+                lambda: score_sets(16)),
+    "nw_tb": ("gnumap_tpu_torch.align.nw_tb", "nw_traceback", nw_tb_sets),
 }
+
+
+def keyword(v):
+    """A keyword argument as the wrapper takes it: an int; or, from an
+    array, a tuple of ints (the band), None when it is empty."""
+    import numpy as np
+    v = np.asarray(v)
+    if v.ndim == 0:
+        return int(v)
+    return tuple(int(x) for x in v) if v.size else None
 
 
 def worker(root: str, kernel: str, inputs: str, reps: int) -> int:
@@ -88,7 +140,8 @@ def worker(root: str, kernel: str, inputs: str, reps: int) -> int:
     z = np.load(inputs)
     dev = torch.device("cuda")
     order = [str(a) for a in z["order"]]
-    kw = {k[3:]: int(z[k]) for k in z.files if k.startswith("kw_")}
+    common = {k[3:]: keyword(z[k]) for k in z.files
+              if k.startswith("kw_") and "__" not in k}
     shared = {a: torch.from_numpy(z["shared_" + a]).to(dev)
               for a in order if "shared_" + a in z.files}
     out = {}
@@ -96,6 +149,9 @@ def worker(root: str, kernel: str, inputs: str, reps: int) -> int:
         args = [shared[a] if a in shared
                 else torch.from_numpy(z[f"{a}__{name}"]).to(dev)
                 for a in order]
+        tail = "__" + name
+        kw = dict(common, **{k[3:-len(tail)]: keyword(z[k]) for k in z.files
+                             if k.startswith("kw_") and k.endswith(tail)})
         got = fn(*args, **kw)
         torch.cuda.synchronize()
         got = got if isinstance(got, (tuple, list)) else (got,)
