@@ -11,8 +11,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              gnumap_tpu_torch/native/*.cpp and loaded (fails if it is not)
   build      nvcc of every csrc/*.cu kernel, in parallel; ptxas registers
              and spills; resident warps per multiprocessor of B1 and B4 and
-             resident hits of B3 (the occupancy API); opcode counts in the
-             SASS of B1 (bw 42), B4 and B3 (W 144) and banded B3 (W 128)
+             resident hits of B3, resident warps of B2 and resident blocks
+             of B5 (the occupancy API); opcode counts in the SASS of B1 and
+             B2 (bw 42), B4 and B3 (W 144) and banded B3 (W 128)
   kernel_b1  csrc/nw_band.cu vs its plain torch version on the card at the
              map path's shapes (B2 = 16384 read-strands, C = 32, L = 104,
              band (9, 42)) plus edge rows; a sample vs oracle.nw_align;
@@ -25,7 +26,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              with substitutions and 1-2 bp indels, SENTINEL slots, anchors
              at the genome's ends, tandem-repeat ties; a sample vs
              oracle.nw_align(traceback=True); gap_slack 0, 1, 13 and a
-             harsh scoring; CUDA-event timings
+             harsh scoring; CUDA-event timings; then seven sets of hit slots
+             (all live, half at random, a live prefix of 50% as on the map
+             path, a prefix of 5%, none, mixed lengths with 0, 1, L and
+             L + 1, scores <= 0) at band widths 42, 26 and 62: vs plain,
+             dead slots (false, 0), time, bound
   kernel_b3  csrc/nw_tb.cu on the same slots, the same way; then unbanded
              (band=None) on such slots at gap_slack 16 (and 14, 30); then
              five sets of live hit slots (all, half at random, a live prefix
@@ -40,7 +45,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              rowmuls, span starts sorted and in any order; a repeat launch
              gives the same bits; CUDA-event timings, beside index_add_ and
              its deterministic form (whose bits are held to the plain
-             version's and to a repeat call's)
+             version's and to a repeat call's); then delta sets at the
+             map_acc shapes (131,072 slots; coverage rowmul 1 x 2 rows and
+             tallies rowmul 4 x 8 rows): n_real = 131,072, 8,794, 1 and 0
+             (the launch floor) in order with pileups, 8,794 in any order,
+             and the pair entry (coverage and tallies in one launch) against
+             the two plain calls: bits, repeat launch, time, bound
   map        16,384 simulated 100 bp reads against a 4,641,652-base genome
              through the port's CLI (main(argv), --device cuda, device
              finish), SAM and SGR on; reads/s, mapped rate, accuracy from
@@ -64,7 +74,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              46,709,983-base genome with 40 x 20 repeat families, 16,384
              reads, SNP mode, SAM on, accumulated on the device twice (bit-
              equal) and on the host once (counts and SAM equal, coverage
-             and tallies within 1e-5); then the CLI with --accumulate
+             and tallies within 1e-5); B5 on the first batch's inputs: the
+             pair launch, the coverage and the tallies call alone, the
+             n_real = 0 floor, and device_accumulate with and without B5
+             (the work around the kernel); then the CLI with --accumulate
              device --snp on 1,024 config-2 reads against --accumulate host
 Each map phase sets every launch count to 0 before its run and fails unless
 the kernels of its path launched.  Each kernel is timed on the inputs of its
@@ -123,6 +136,9 @@ PATHS = {"map": (("nw_band", "nw_pure", "nw_tb"), ("nw_full", "accum")),
          "map_unbanded": (("nw_full", "nw_tb"),
                           ("nw_band", "nw_pure", "accum")),
          "map_acc": (("nw_band", "nw_pure", "nw_tb", "accum"), ("nw_full",))}
+# launches a path makes exactly: B2 once a batch on map (2 batches); B5 once
+# a batch on map_acc, coverage and tallies in one launch
+PATH_LAUNCHES = {"map": {"nw_pure": 2}, "map_acc": {"accum": 2}}
 # the path whose launch counts a kernel reports
 OWN_PATH = {"nw_band": "map", "nw_pure": "map", "nw_tb": "map",
             "nw_full": "map_unbanded", "accum": "map_acc"}
@@ -131,6 +147,10 @@ FULL = ((14, {}), (30, {}),
         (16, dict(mismatch_score=-8.0, gap_open=1.0, gap_extend=0.5)))
 # gap_slack of the live-slot sets of kernel_b1: band widths 42, 26 and 62
 LIVE_SET_SLACKS = (8, 4, 13)
+# slot capacity and live deltas of the first map_acc batch: the shapes of
+# kernel_b5's sets
+ACC_SLOTS = 131_072
+ACC_LIVE = 8_794
 # gap_slack of the live-slot sets of kernel_b4: window widths 144, 140, 172
 FULL_SET_SLACKS = (16, 14, 30)
 # The card's published peaks (NVIDIA H100 SXM data sheet): int32 is 64 lanes
@@ -154,7 +174,12 @@ def emit(phase: str, **kw) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of fn() in ms, after one warm-up call."""
+    """Median device time of fn() in ms, after one warm-up call: CUDA events
+    around fn(), queued behind a spin kernel of about a millisecond, so that
+    the host has enqueued all of fn()'s launches before the first of them
+    starts.  Without the spin an idle card waits for the host between the
+    two events, and a kernel shorter than its wrapper's host time (30-60 us)
+    reads as that host time."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -162,6 +187,7 @@ def cuda_ms(fn, reps: int) -> float:
     for _ in range(reps):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         s.record()
         fn()
         e.record()
@@ -285,9 +311,18 @@ def kernel_bound(name, a, kw):
     output written once) over the memory rate; bound_ms is the larger."""
     import torch
     from gnumap_tpu_torch.align.nw_band import SENTINEL
-    if name == "accum":
+    if name == "accum" and len(a) == 6:     # the pair: both jobs' needs
+        cov, tal, base, cov_d, tal_d, n_real = a
+        parts = [kernel_bound("accum", (arr, base, d, n_real),
+                              dict(rowmul=rm))
+                 for arr, d, rm in ((cov, cov_d, 1), (tal, tal_d, 4))]
+        ops, nbytes = (sum(p[k] for p in parts) for k in ("ops", "bytes"))
+        ops_ms = ops / F32_OPS * 1e3
+        out = dict(live=parts[0]["live"], touched_rows=sum(
+            p["touched_rows"] for p in parts))
+    elif name == "accum":
         arr, base, deltas, n_real = a
-        n = int(n_real)
+        n = max(0, min(int(n_real), base.shape[0]))
         nrows = deltas.shape[1]
         rows = (base[:n].long()[:, None] * kw["rowmul"]
                 + torch.arange(nrows, device=base.device)).flatten()
@@ -482,7 +517,10 @@ def ptxas_summary(log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?ILi(\d+)E(Lb1E)?",
                       line)
-        if m:
+        if m is None and "Compiling entry function" in line:
+            key = "-"                    # a kernel that is not a template
+            out[key] = [None, 0]
+        elif m:
             key = m.group(1) + ("b" if m.group(2) else "")
             out[key] = [None, 0]
         elif key and "spill stores" in line:
@@ -611,6 +649,94 @@ def check_tb_live_sets(rng, genome_np, genome_t, H, reps):
                      ms=cuda_ms(lambda: nw_tb.nw_traceback(*args, **kw),
                                 reps))
             r.update(kernel_bound("nw_tb", args, kw))
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+            results.append(r)
+    return results
+
+
+def b2_sets(rng, genome_np, genome_t, H, slacks=LIVE_SET_SLACKS):
+    """Hit-slot sets of the pure-diagonal kernel (L 104): (emis_t int32[H,
+    5, L], {gap_slack: ({set: (cands, lens, scores)}, keyword arguments)}),
+    numpy.  Anchors and reads are tb_inputs', the same at every gap_slack;
+    the scores are B1's for the set's own anchors and lengths at that band,
+    as on the map path; "scores_le_0" forces a third of them to 0, -5 or
+    NEG_INF."""
+    import numpy as np
+    import torch
+    from gnumap_tpu_torch.align.nw_band import SENTINEL
+    from gnumap_tpu_torch.config import MapperConfig
+    L = 104
+    emis, cands0, lens0 = tb_inputs(
+        rng, genome_np, H, MapperConfig(max_read_len=L, max_candidates=32),
+        sentinels=False)
+    emis_t = np.ascontiguousarray(emis.transpose(0, 2, 1))
+    dev = genome_t.device
+    emis_d = torch.from_numpy(emis_t).to(dev)
+    mixed = lens0.copy()
+    edge = rng.random(H)
+    for k, v in enumerate((0, 1, L, L + 1)):
+        mixed[(edge >= 0.05 * k) & (edge < 0.05 * (k + 1))] = v
+    mixed[:4] = (0, 1, L, L + 1)
+    masks = {"all_live": (np.ones(H, bool), lens0),
+             "half_random": (rng.random(H) < 0.5, lens0),
+             "prefix_50pct": (np.arange(H) < H // 2, lens0),
+             "prefix_5pct": (np.arange(H) < H // 20, lens0),
+             "none_live": (np.zeros(H, bool), lens0),
+             "mixed_lengths": (rng.random(H) < 0.5, mixed),
+             "scores_le_0": (np.ones(H, bool), lens0)}
+    kill = rng.integers(0, 9, H)
+    out = {}
+    for slack in slacks:
+        cfg = MapperConfig(max_read_len=L, max_candidates=32, gap_slack=slack)
+        kern, _, skw = score_fns(cfg)
+        sets = {}
+        for name, (mask, lens) in masks.items():
+            cands = np.where(mask, cands0, SENTINEL).astype(np.int32)
+            scores = kern(emis_d,
+                          torch.from_numpy(cands[:, None].copy()).to(dev),
+                          torch.from_numpy(lens).to(dev), genome_t,
+                          **skw)[:, 0].cpu().numpy()
+            if name == "scores_le_0":
+                scores = np.where(kill == 0, 0, np.where(
+                    kill == 1, -5, np.where(kill == 2, -(1 << 29), scores)))
+            sets[name] = (cands, lens.astype(np.int32),
+                          scores.astype(np.int32))
+        out[slack] = (sets, dict(skw))
+    return emis_t, out
+
+
+def check_b2_sets(rng, genome_np, genome_t, H, reps, slacks=LIVE_SET_SLACKS):
+    """B2 on its hit-slot sets at each gap_slack of ``slacks``: 0 mismatches
+    against the plain version, dead slots (false, 0); time, bound and share
+    of the bound for each.  One list of results."""
+    import torch
+    from gnumap_tpu_torch.align import nw_band, nw_pure
+    dev = genome_t.device
+    results = []
+    emis_t, by_slack = b2_sets(rng, genome_np, genome_t, H, slacks)
+    emis_d = torch.from_numpy(emis_t).to(dev)
+    for slack, (sets, kw) in by_slack.items():
+        for name, (cands, lens, scores) in sets.items():
+            args = (emis_d, torch.from_numpy(cands).to(dev),
+                    torch.from_numpy(lens).to(dev),
+                    torch.from_numpy(scores).to(dev), genome_t)
+            pure, jfin = nw_pure.nw_pure_banded(*args, **kw)
+            torch.cuda.synchronize()
+            p_ref, j_ref = nw_pure.nw_pure_banded_plain(*args, **kw)
+            dead = torch.from_numpy(
+                (cands == nw_band.SENTINEL) | (lens <= 0) | (lens > kw["L"])
+                | (scores <= 0)).to(dev)
+            r = dict(set=name, gap_slack=slack, band=[kw["boff"], kw["bw"]],
+                     H=H, L=kw["L"], W=kw["W"],
+                     mismatches=int((pure != p_ref).sum()
+                                    + (jfin != j_ref).sum()),
+                     max_abs_err=int((jfin.long() - j_ref.long()).abs().max()),
+                     dead_not_zero=int(pure[dead].sum()
+                                       + (jfin[dead] != 0).sum()),
+                     pure=int(pure.sum()),
+                     ms=cuda_ms(lambda: nw_pure.nw_pure_banded(*args, **kw),
+                                reps))
+            r.update(kernel_bound("nw_pure", args, kw))
             r["share_of_bound"] = r["bound_ms"] / r["ms"]
             results.append(r)
     return results
@@ -886,6 +1012,116 @@ def check_b5(rng, rowmul, order, R, H, reps):
     return out
 
 
+def b5_sets(rng, H=ACC_SLOTS, live=ACC_LIVE):
+    """Delta sets of the ordered accumulator at the map_acc shapes: {set:
+    (base_units int32[H], n_real, rowmul, nrows, R)} for coverage (rowmul 1,
+    2 rows of 128 a delta) and tallies (rowmul 4, 8 rows), R rows of 128
+    floats in the accumulator.  Span starts in order with a pileup of 64
+    deltas on one block and of 32 on two alternating neighbours, n_real = H,
+    ``live``, 1 and 0; past n_real the starts are in no order (the kernel
+    must not read them).  "any_order": the first ``live`` starts shuffled."""
+    import numpy as np
+    units = 1 << 18                     # 128-position units of the genome
+    base = rng.integers(0, units - 2, H)
+    for n in (live, H):
+        p, q = n // 8, n // 4
+        base[p:p + 64] = base[p - 1]
+        base[q:q + 32] = base[q - 1] + np.arange(32) % 2
+    sets = {}
+    for job, rowmul, nrows in (("cov", 1, 2), ("tal", 4, 8)):
+        for n in (H, live, 1, 0):
+            b = base.copy()
+            b[:n] = np.sort(b[:n])
+            sets[f"{job}_n{n}"] = (b.astype(np.int32), n, rowmul, nrows,
+                                   units * rowmul)
+        sets[f"{job}_any_order"] = (base.astype(np.int32), live, rowmul,
+                                    nrows, units * rowmul)
+    return sets
+
+
+def b5_tensors(base, n_real, nrows, R, seed, dev):
+    """(arr, base_units, deltas, n_real) on the card for one set of b5_sets:
+    the deltas and the accumulator are drawn on the card from ``seed``
+    (magnitudes 2^-12 .. 1, so that the add order shows in the bits)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    H = base.shape[0]
+    deltas = (torch.rand((H, nrows, 128), generator=gen, device=dev)
+              * torch.exp2(-torch.randint(0, 13, (H, nrows, 128),
+                                          generator=gen, device=dev).float()))
+    arr = torch.rand((R, 128), generator=gen, device=dev)
+    return (arr, torch.from_numpy(base).to(dev), deltas,
+            torch.tensor(n_real, dtype=torch.int32, device=dev))
+
+
+def check_b5_sets(rng, reps):
+    """B5 on its delta sets: bits equal to the serial plain version's and to
+    a repeat launch's; time, bound and share, index_add_ and its
+    deterministic form beside it; then the pair entry (coverage and tallies
+    in one launch) against the two plain calls at n_real = ACC_LIVE and
+    ACC_SLOTS.  One list of results."""
+    import torch
+    from gnumap_tpu_torch.posterior import accum
+    dev = torch.device("cuda")
+    sets = b5_sets(rng)
+    results, keep = [], {}
+    for k, (name, (base, n, rowmul, nrows, R)) in enumerate(sets.items()):
+        arr0, base_t, deltas, n_real = b5_tensors(base, n, nrows, R, 50 + k,
+                                                  dev)
+        args = (base_t, deltas, n_real)
+        got = [accum.apply_deltas(arr0.clone(), *args, rowmul=rowmul)
+               for _ in range(2)]
+        ref = accum.apply_deltas_plain(arr0.clone(), *args, rowmul=rowmul)
+        torch.cuda.synchronize()
+        bits = [g.view(torch.int32) for g in got]
+        buf = arr0.clone()
+        any_order = name.endswith("any_order")
+        r = dict(set=name, rowmul=rowmul, nrows=nrows, R=R, H=len(base),
+                 n_real=n, mismatches=int(
+                     (bits[0] != ref.view(torch.int32)).sum()),
+                 repeat_equal=bool(torch.equal(bits[0], bits[1])),
+                 max_abs_err=float((got[0] - ref).abs().max()),
+                 touched=int((got[0] != arr0).sum()),
+                 ms=cuda_ms(lambda: accum.apply_deltas(
+                     buf, *args, rowmul=rowmul), reps))
+        r.update(kernel_bound("accum", (arr0, *args), dict(rowmul=rowmul)))
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        if n > 1 and not any_order:
+            r["library_ms"] = index_add_ms((arr0, *args), rowmul, reps)
+            r["library_ordered"] = ordered_index_add((arr0, *args), rowmul,
+                                                     reps, ref)
+        results.append(r)
+        if name in ("cov_n%d" % ACC_LIVE, "tal_n%d" % ACC_LIVE,
+                    "cov_n%d" % ACC_SLOTS, "tal_n%d" % ACC_SLOTS):
+            keep[name] = (arr0, base_t, deltas, n_real, ref)
+        del got, bits, buf
+    for n in (ACC_LIVE, ACC_SLOTS):
+        cov0, base_t, cov_d, n_real, cov_ref = keep[f"cov_n{n}"]
+        tal0, base_2, tal_d, _, tal_ref = keep[f"tal_n{n}"]
+        assert torch.equal(base_t, base_2)
+        got = [accum.apply_deltas_pair(cov0.clone(), tal0.clone(), base_t,
+                                       cov_d, tal_d, n_real)
+               for _ in range(2)]
+        torch.cuda.synchronize()
+        mism = sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                   for g, w in zip(got[0], (cov_ref, tal_ref)))
+        bufs = (cov0.clone(), tal0.clone())
+        pair_args = (cov0, tal0, base_t, cov_d, tal_d, n_real)
+        r = dict(set=f"pair_n{n}", H=len(base_t), n_real=n, mismatches=mism,
+                 repeat_equal=all(torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+                                  for a, b in zip(*got)),
+                 max_abs_err=max(float((g - w).abs().max()) for g, w in
+                                 zip(got[0], (cov_ref, tal_ref))),
+                 ms=cuda_ms(lambda: accum.apply_deltas_pair(
+                     *bufs, base_t, cov_d, tal_d, n_real), reps))
+        r.update(kernel_bound("accum", pair_args, {}))
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        results.append(r)
+        del got, bufs
+    return results
+
+
 def index_add_rows(a, rowmul):
     """(row numbers, delta rows) of B5's inputs, for one library call."""
     import torch
@@ -947,35 +1183,59 @@ def drive(fn, names, wrappers):
 def main_path_check(name, spy, plain):
     """The kernel and its plain version on the inputs of the main path's
     first call: mismatches, max |err| and CUDA-event times.  B5 updates
-    its accumulator in place, so each of its runs gets a copy."""
+    its accumulators in place, so each of its runs gets copies; its path
+    calls the pair entry, so each job is also timed by itself, and the
+    launch floor with n_real = 0."""
     import torch
     a, kw = spy.first
-    extra = {}
     if name == "accum":
-        got = (spy.real(a[0].clone(), *a[1:], **kw),)
-        ref = (plain(a[0].clone(), *a[1:], **kw),)
-        mism = int((got[0].view(torch.int32)
-                    != ref[0].view(torch.int32)).sum())
-        err = float((got[0] - ref[0]).abs().max())
-        buf, pbuf = a[0].clone(), a[0].clone()
-        ms = cuda_ms(lambda: spy.real(buf, *a[1:], **kw), 20)
-        pms = cuda_ms(lambda: plain(pbuf, *a[1:], **kw), 1)
-        lib = index_add_ms(a, kw["rowmul"], 20)
-        extra = dict(library_ordered=ordered_index_add(a, kw["rowmul"], 20,
-                                                       ref[0]))
-    else:
-        got, ref = spy.real(*a, **kw), plain(*a, **kw)
-        got = got if isinstance(got, tuple) else (got,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        mism = sum(int((g != r).sum()) for g, r in zip(got, ref))
-        err = max(int((g.long() - r.long()).abs().max())
-                  for g, r in zip(got, ref))
-        ms = cuda_ms(lambda: spy.real(*a, **kw), 20)
-        pms = cuda_ms(lambda: plain(*a, **kw), 3)
-        lib = None
+        from gnumap_tpu_torch.posterior import accum
+        cov, tal, base, cov_d, tal_d, n_real = a
+        rest = (base, cov_d, tal_d, n_real)
+        got = spy.real(cov.clone(), tal.clone(), *rest, **kw)
+        ref = plain(cov.clone(), tal.clone(), *rest, **kw)
+        mism = sum(int((g.view(torch.int32) != r.view(torch.int32)).sum())
+                   for g, r in zip(got, ref))
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        bufs = (cov.clone(), tal.clone())
+        ms = cuda_ms(lambda: spy.real(*bufs, *rest, **kw), 20)
+        pms = cuda_ms(lambda: plain(*bufs, *rest, **kw), 1)
+        none = torch.zeros_like(n_real)
+        extra = dict(n_real_0_ms=cuda_ms(
+            lambda: spy.real(*bufs, base, cov_d, tal_d, none, **kw), 20))
+        lib = 0.0
+        # each job by itself: the single-accumulator entry, its bound, and
+        # the library call in both forms (library_ms is their sum)
+        for job, k, deltas, rowmul in (("coverage", 0, cov_d, 1),
+                                       ("tallies", 1, tal_d, 4)):
+            one = (a[k], base, deltas, n_real)
+            t = cuda_ms(lambda: accum.apply_deltas(
+                bufs[k], base, deltas, n_real, rowmul=rowmul), 20)
+            t0 = cuda_ms(lambda: accum.apply_deltas(
+                bufs[k], base, deltas, none, rowmul=rowmul), 20)
+            bnd = kernel_bound("accum", one, dict(rowmul=rowmul))
+            lib_k = index_add_ms(one, rowmul, 20)
+            lib += lib_k
+            extra[job] = dict(
+                ms=t, n_real_0_ms=t0, bound_ms=bnd["bound_ms"],
+                touched_rows=bnd["touched_rows"],
+                share_of_bound=bnd["bound_ms"] / t, library_ms=lib_k,
+                library_ordered=ordered_index_add(one, rowmul, 20, ref[k]))
+        bound = kernel_bound(name, spy.first[0], kw)
+        return dict(shape=list(base.shape), ms=ms, plain_ms=pms,
+                    library_ms=lib, mismatches=mism, max_abs_err=err,
+                    **bound, **extra, share_of_bound=bound["bound_ms"] / ms)
+    got, ref = spy.real(*a, **kw), plain(*a, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    mism = sum(int((g != r).sum()) for g, r in zip(got, ref))
+    err = max(int((g.long() - r.long()).abs().max())
+              for g, r in zip(got, ref))
+    ms = cuda_ms(lambda: spy.real(*a, **kw), 20)
+    pms = cuda_ms(lambda: plain(*a, **kw), 3)
     bound = kernel_bound(name, a, kw)
-    return dict(shape=list(a[1].shape), ms=ms, plain_ms=pms, library_ms=lib,
-                mismatches=mism, max_abs_err=err, **bound, **extra,
+    return dict(shape=list(a[1].shape), ms=ms, plain_ms=pms, library_ms=None,
+                mismatches=mism, max_abs_err=err, **bound,
                 share_of_bound=bound["bound_ms"] / ms)
 
 
@@ -1092,8 +1352,44 @@ def map_acc(tmp, fa, reads, pl, wrappers):
         torch.cuda.empty_cache()
         return res, wall
 
-    (d1, w1), launches, spies = drive(lambda: run("device"), ("accum",),
-                                      wrappers)
+    # the first device_accumulate call's arguments, to time the work around
+    # B5 (sorts, weights, the dense delta windows) afterwards
+    real_acc, first_acc = pl.device_accumulate, []
+
+    def acc_spy(*a):
+        if not first_acc:
+            first_acc.append(a)
+        return real_acc(*a)
+
+    pl.device_accumulate = acc_spy
+    try:
+        (d1, w1), launches, spies = drive(lambda: run("device"), ("accum",),
+                                          wrappers)
+    finally:
+        pl.device_accumulate = real_acc
+    around = None
+    if first_acc:
+        acfg, aB, apwm2, arows, acov, atal = first_acc[0]
+        bufs = (acov.clone(), atal.clone() if atal is not None else None)
+        accum_mod, pair = wrappers["accum"]
+        real_pair = getattr(accum_mod, pair)
+        n0 = accum_mod.LAUNCHES
+        total_ms = cuda_ms(lambda: real_acc(acfg, aB, apwm2, arows, *bufs), 5)
+        setattr(accum_mod, pair, lambda cov, tal, *a, **k: (cov, tal))
+        try:
+            rest_ms = cuda_ms(lambda: real_acc(acfg, aB, apwm2, arows, *bufs),
+                              5)
+        finally:
+            setattr(accum_mod, pair, real_pair)
+        accum_mod.LAUNCHES = n0
+        H = arows["valid_h"].shape[0]
+        span = pl.acc_span(acfg)
+        around = dict(device_accumulate_ms=total_ms,
+                      device_accumulate_without_b5_ms=rest_ms,
+                      slots=H, cov_delta_bytes=H * span * 4,
+                      tal_delta_bytes=H * span * 16)
+        del bufs, first_acc[:]
+        torch.cuda.empty_cache()
     d2, w2 = run("device")
     h, wh = run("host")
     failures = []
@@ -1141,6 +1437,7 @@ def map_acc(tmp, fa, reads, pl, wrappers):
                launches=launches, counts=counts,
                device_reads_per_s=[n / w1, n / w2], host_reads_per_s=n / wh,
                device_map_s=[w1, w2], host_map_s=wh,
+               device_accumulate=around,
                device_runs_bit_equal=bit_equal, max_abs_err_vs_host=err,
                within_1e_5=close, sam_equal=sam_equal,
                sam_records="".join(h.sam_lines).count("\n"),
@@ -1159,7 +1456,7 @@ def main(argv=None) -> int:
                     help="comma-separated phases to run")
     ap.add_argument("--sass-out", default=None,
                     help="write cuobjdump -sass of the kernels the build "
-                         "phase counts (B1 at bw 42, B4 and B3 at W 144, "
+                         "phase counts (B1 and B2 at bw 42, B4 and B3 at W 144, "
                          "banded B3 at W 128) to this file")
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
@@ -1226,8 +1523,16 @@ def main(argv=None) -> int:
     if min(full_resident.values()) <= 0 or min(tb_resident.values()) <= 0:
         raise RuntimeError(f"nw_full / nw_tb: no occupancy at some width: "
                            f"{full_resident} {tb_resident}")
+    # B2 (8 lanes a hit, L 104) for each band width, and B5's blocks of 256
+    pure_warps = _build.load("nw_pure").nw_pure_resident_warps
+    pure_resident = {str(bw): pure_warps(bw, 104) for bw in range(10, 63, 4)}
+    accum_blocks = _build.load("accum_rmw").accum_rmw_resident_blocks()
+    if min(pure_resident.values()) <= 0 or accum_blocks <= 0:
+        raise RuntimeError(f"nw_pure / accum_rmw: no occupancy: "
+                           f"{pure_resident} {accum_blocks}")
     row_sass = {}
-    for lib, entry in (("nw_full", "nw_full_kernelILi18E"),
+    for lib, entry in (("nw_pure", "nw_pure_kernelILi42E"),
+                       ("nw_full", "nw_full_kernelILi18E"),
                        ("nw_tb", "nw_tb_kernelILi9ELb0E"),
                        ("nw_tb", "nw_tb_kernelILi8ELb1E")):
         counts, text = sass_summary(
@@ -1248,7 +1553,13 @@ def main(argv=None) -> int:
          nw_band_bw42_sass_total=None if sass is None else sum(
              sass.values()),
          nw_full_resident_warps_per_sm=full_resident,
-         nw_tb_resident_hits_per_sm=tb_resident, row_sass=row_sass)
+         nw_tb_resident_hits_per_sm=tb_resident,
+         nw_pure_resident_warps_per_sm=pure_resident,
+         accum_rmw_resident_blocks_per_sm=accum_blocks, row_sass=row_sass)
+    spills = {n: {k: v[1] for k, v in ptxas[n].items() if v[1]}
+              for n in ("nw_pure", "accum_rmw")}
+    if any(spills.values()):
+        raise RuntimeError(f"register spills: {spills}")
 
     genome_str = sim.random_genome(GENOME_LEN, seed=0)
     genome_np = packing.encode(genome_str)
@@ -1257,12 +1568,12 @@ def main(argv=None) -> int:
                 "nw_pure": (nw_pure, "nw_pure_banded"),
                 "nw_tb": (nw_tb, "nw_traceback"),
                 "nw_full": (nw_full, "nw_scores_full"),
-                "accum": (accum, "apply_deltas")}
+                "accum": (accum, "apply_deltas_pair")}
     plains = {"nw_band": nw_band.nw_scores_banded_plain,
               "nw_pure": nw_pure.nw_pure_banded_plain,
               "nw_tb": nw_tb.nw_traceback_plain,
               "nw_full": nw_full.nw_scores_full_plain,
-              "accum": accum.apply_deltas_plain}
+              "accum": accum.apply_deltas_pair_plain}
     kernels = {n: dict(name=n, route="cuda", source=src, replaces=rep,
                        launches=None, path=OWN_PATH[n], mismatches=0,
                        max_abs_err=0, ms=None, plain_ms=None, bound_ms=None,
@@ -1293,6 +1604,10 @@ def main(argv=None) -> int:
             if launches[name] != 0:
                 failures.append(f"{path}: {name} launched {launches[name]} "
                                 "times off its path")
+        for name, want in PATH_LAUNCHES.get(path, {}).items():
+            if launches[name] != want:
+                failures.append(f"{path}: {name} launched {launches[name]} "
+                                f"times, expected {want}")
         for name, cnt in launches.items():
             if OWN_PATH[name] == path:
                 kernels[name]["launches"] = cnt
@@ -1375,6 +1690,14 @@ def main(argv=None) -> int:
                 emit(phase + "_band", scoring=extra or "default", **r)
                 record("nw_pure" if phase == "kernel_b2" else "nw_tb", r,
                        phase)
+        if "kernel_b2" in only:
+            for r in check_b2_sets(rng, genome_k, genome_kt, 16_384, 10):
+                emit("kernel_b2_set", **r)
+                record("nw_pure", r, f"kernel_b2 set {r['set']}")
+                if r["dead_not_zero"]:
+                    failures.append(f"kernel_b2 set {r['set']} gap_slack "
+                                    f"{r['gap_slack']}: a dead slot is not "
+                                    "(false, 0)")
         if "kernel_b3" in only:   # unbanded: band=None, B4's scores
             for slack, H, reps in ((16, 16_384, 20), (14, 512, 0),
                                    (30, 512, 0)):
@@ -1407,6 +1730,12 @@ def main(argv=None) -> int:
                                 "launch gave other bits")
             if rowmul == 4 and reps:
                 timed("accum", r)
+        for r in check_b5_sets(rng, 10):
+            emit("kernel_b5_set", **r)
+            record("accum", r, f"kernel_b5 set {r['set']}")
+            if not r["repeat_equal"]:
+                failures.append(f"kernel_b5 set {r['set']}: a repeat launch "
+                                "gave other bits")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         fa = os.path.join(tmp, "genome.fa")

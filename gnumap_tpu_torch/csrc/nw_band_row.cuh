@@ -1,7 +1,8 @@
-// The banded DP recurrence shared by the banded scoring kernel (nw_band.cu)
-// and the pure-diagonal detection kernel (nw_pure.cu), so that both run one
-// recurrence: B2's test "max(M, Ix) == score" compares its own end-row
-// values with B1's scores.
+// The banded DP recurrence of the banded scoring kernel (nw_band.cu).  The
+// pure-diagonal detection kernel (nw_pure.cu) runs the same recurrence, value
+// for value, split over a group of lanes (its strip_row), and takes the
+// constants and helpers from here: B2's test "max(M, Ix) == score" compares
+// its own end-row values with B1's scores.
 //
 // Diagonal-band state of one (read-strand, window) pair: lane b at read row
 // i scores window column col = i + b - boff.  A thread keeps two register

@@ -492,9 +492,10 @@ def device_accumulate(cfg: MapperConfig, B: int, pwm2, rows: dict, cov,
     cov_delta = torch.where((kk >= s[:, None])
                             & (kk < (s + ref_len[perm])[:, None]),
                             w[perm][:, None], 0.0)
-    accum.apply_deltas(cov, base_s, cov_delta.reshape(H, span // 128, 128),
-                       n_real, rowmul=1)
-    if tal is not None:
+    cov_delta = cov_delta.reshape(H, span // 128, 128)
+    if tal is None:
+        accum.apply_deltas(cov, base_s, cov_delta, n_real, rowmul=1)
+    else:
         val = pwm2[row_h[perm].long()].float() \
             * (w[perm] * (1.0 / PWM_SCALE))[:, None, None]    # (H, L, 4)
         col = gidx[perm] - (base_units[perm] << 7)[:, None]
@@ -504,9 +505,10 @@ def device_accumulate(cfg: MapperConfig, B: int, pwm2, rows: dict, cov,
                                 device=dev)
         tal_delta[tgt] = val[ok]
         # row-major (span, 4) is the 4p + b lane interleave
-        accum.apply_deltas(tal, base_s,
-                           tal_delta.reshape(H, span // 32, 128), n_real,
-                           rowmul=4)
+        # coverage and tallies in one launch, coverage first
+        accum.apply_deltas_pair(cov, tal, base_s, cov_delta,
+                                tal_delta.reshape(H, span // 32, 128),
+                                n_real)
     return stats
 
 

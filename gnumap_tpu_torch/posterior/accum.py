@@ -2,13 +2,15 @@
 counterpart of gnumap_tpu/posterior/accum_pallas.py::apply_deltas, the last
 step of device accumulation (pipeline/mapper.py device_accumulate).
 
-``apply_deltas`` is the wrapper of the hand-written CUDA kernel
-csrc/accum_rmw.cu (which replaces the Pallas ``_rmw_kernel``).  For CPU
-tensors it runs the plain version, ``apply_deltas_plain``, the serial
-definition.  For CUDA tensors it launches the kernel or raises.  Both
-update ``arr`` in place (the accumulator is the only copy; the JAX call
-donates its buffer for the same reason) and return it, with the same f32
-bits: every element receives its deltas one by one in ascending h.
+``apply_deltas`` and ``apply_deltas_pair`` are the wrappers of the
+hand-written CUDA kernel csrc/accum_rmw.cu (which replaces the Pallas
+``_rmw_kernel``): one accumulator a launch, or the coverage and the tallies
+of one batch in a single launch.  For CPU tensors they run the plain
+version, ``apply_deltas_plain`` (for the pair: twice, coverage first), the
+serial definition.  For CUDA tensors they launch the kernel or raise.  All
+update their accumulators in place (the accumulator is the only copy; the
+JAX call donates its buffer for the same reason) and return them, with the
+same f32 bits: every element receives its deltas one by one in ascending h.
 
 Layouts are the JAX call's, 128 lanes wide, so that flat memory order is
 position order:
@@ -40,6 +42,61 @@ def apply_deltas_plain(arr, base_units, deltas, n_real, *, rowmul: int):
     return arr
 
 
+# The kernel's order flag, one per (device, stream): [int32[2] zeroed once,
+# launches made with it].  A launch uses slot (launches & 1) and clears the
+# other one (csrc/accum_rmw.cu), so the wrapper never zeroes it again.
+_flags: dict = {}
+
+
+def _launch(jobs, base_units, n_real):
+    """One launch of the kernel for 1 or 2 jobs (arr, deltas, rowmul) that
+    share base_units and n_real."""
+    dev = base_units.device
+    H = base_units.shape[0]
+    check_tensor("base_units", base_units, torch.int32, (H,), dev)
+    check_tensor("n_real", n_real.reshape(1), torch.int32, (1,), dev)
+    for arr, deltas, _ in jobs:
+        check_tensor("arr", arr, torch.float32, (arr.shape[0], 128), dev)
+        check_tensor("deltas", deltas, torch.float32,
+                     (H, deltas.shape[1], 128), dev)
+    if H == 0:
+        return
+    from gnumap_tpu_torch import _build
+    fn = _build.load("accum_rmw").accum_rmw_launch
+    fn.restype = ctypes.c_int
+    job_types = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                 ctypes.c_int, ctypes.c_int]
+    fn.argtypes = ([ctypes.c_int] + job_types * 2 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p])
+    job_args = []
+    for arr, deltas, rowmul in (jobs + jobs)[:2]:
+        job_args += [arr.data_ptr(), arr.shape[0], deltas.data_ptr(),
+                     deltas.shape[1], rowmul]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        state = _flags.get((dev.index, stream))
+        if state is None:
+            state = _flags[(dev.index, stream)] = [
+                torch.zeros(2, dtype=torch.int32, device=dev), 0]
+        rc = fn(len(jobs), *job_args, base_units.data_ptr(),
+                n_real.data_ptr(), H, state[0].data_ptr(), state[1] & 1,
+                stream)
+        if rc == 0:     # a refused launch cleared nothing: keep the slot
+            state[1] += 1
+    if rc != 0:
+        raise RuntimeError(f"accum_rmw kernel launch failed (code {rc})")
+    global LAUNCHES
+    LAUNCHES += 1
+
+
+def _device_kind(arr, name):
+    if arr.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {arr.device} "
+                         "(cpu runs the plain version, cuda the kernel)")
+    return arr.device.type
+
+
 def apply_deltas(arr: torch.Tensor, base_units: torch.Tensor,
                  deltas: torch.Tensor, n_real: torch.Tensor, *,
                  rowmul: int) -> torch.Tensor:
@@ -52,34 +109,30 @@ def apply_deltas(arr: torch.Tensor, base_units: torch.Tensor,
     deltas     f32[H, nrows, 128]   per-hit delta windows
     n_real     int32[1] or []       number of real hits, a device tensor
     """
-    if arr.device.type == "cpu":
+    if _device_kind(arr, "apply_deltas") == "cpu":
         return apply_deltas_plain(arr, base_units, deltas, n_real,
                                   rowmul=rowmul)
-    if arr.device.type != "cuda":
-        raise ValueError(f"apply_deltas: unsupported device {arr.device} "
-                         "(cpu runs the plain version, cuda the kernel)")
-    dev = arr.device
-    H, nrows = base_units.shape[0], deltas.shape[1]
-    check_tensor("arr", arr, torch.float32, (arr.shape[0], 128), dev)
-    check_tensor("base_units", base_units, torch.int32, (H,), dev)
-    check_tensor("deltas", deltas, torch.float32, (H, nrows, 128), dev)
-    check_tensor("n_real", n_real.reshape(1), torch.int32, (1,), dev)
-    if H == 0:
-        return arr
-    from gnumap_tpu_torch import _build
-    fn = _build.load("accum_rmw").accum_rmw_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 2)
-    unordered = torch.zeros(1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(arr.data_ptr(), arr.shape[0], base_units.data_ptr(),
-                deltas.data_ptr(), n_real.data_ptr(), H, nrows, rowmul,
-                unordered.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"accum_rmw kernel launch failed (code {rc})")
-    global LAUNCHES
-    LAUNCHES += 1
+    _launch([(arr, deltas, rowmul)], base_units, n_real)
     return arr
+
+
+def apply_deltas_pair_plain(cov, tal, base_units, cov_deltas, tal_deltas,
+                            n_real):
+    """The two plain calls, coverage (rowmul 1) first, then tallies
+    (rowmul 4)."""
+    apply_deltas_plain(cov, base_units, cov_deltas, n_real, rowmul=1)
+    apply_deltas_plain(tal, base_units, tal_deltas, n_real, rowmul=4)
+    return cov, tal
+
+
+def apply_deltas_pair(cov: torch.Tensor, tal: torch.Tensor,
+                      base_units: torch.Tensor, cov_deltas: torch.Tensor,
+                      tal_deltas: torch.Tensor, n_real: torch.Tensor):
+    """apply_deltas on the coverage (rowmul 1) and the tallies (rowmul 4) of
+    one batch, which share base_units and n_real, in one kernel launch: the
+    same bits as the two calls, in place; returns (cov, tal)."""
+    if _device_kind(cov, "apply_deltas_pair") == "cpu":
+        return apply_deltas_pair_plain(cov, tal, base_units, cov_deltas,
+                                       tal_deltas, n_real)
+    _launch([(cov, cov_deltas, 1), (tal, tal_deltas, 4)], base_units, n_real)
+    return cov, tal

@@ -5,8 +5,9 @@ only torch and the port (nothing of the JAX package is imported):
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Each kernel (B1 nw_band, B2 nw_pure, B3 nw_tb banded and unbanded, B4
-nw_full, B5 accum_rmw) is held to its plain torch version on the same
-inputs (exact equality; B5 bit for bit, and again on a repeat launch), and
+nw_full, B5 accum_rmw and its pair entry) is held to its plain torch version
+on the same inputs (exact equality; B5 bit for bit, and again on a repeat
+launch), and
 the mapper on the card to the mapper on the CPU, with the device finish,
 the host finish and device accumulation.
 """
@@ -374,6 +375,132 @@ def test_accum_kernel_matches_plain(rowmul, order):
     assert accum.LAUNCHES == n0 + 2
     for g in got:
         assert torch.equal(g.view(torch.int32), want.view(torch.int32))
+
+
+PURE_LIVE_SETS = ("all_live", "half_random", "prefix_half", "prefix_few",
+                  "none_live", "mixed_lengths", "scores_le_0")
+
+
+@pytest.mark.parametrize("slack", [8, 4, 13])
+@pytest.mark.parametrize("name", PURE_LIVE_SETS)
+def test_pure_kernel_matches_plain_on_live_sets(name, slack):
+    """B2 on the card == its plain version on pure and jfin, whichever hit
+    slots are live: all, half at random, a live prefix of a half (the map
+    path's shape) and of a few, none, mixed lengths with 0, 1, L and L + 1,
+    and scores <= 0; 165 slots, so the last block of 16 is ragged and
+    blocks hold from 0 to 16 live hits; band widths 42, 26 and 62."""
+    dev = _card()
+    L, H = 48, 165
+    cfg = MapperConfig(max_read_len=L, gap_slack=slack)
+    rng = np.random.default_rng(slack + len(name))
+    args, _ = _hits(rng, H, L, 3000, cfg)
+    cands, lens = args[1].numpy().copy(), args[2].numpy().copy()
+    cands[cands == nw_band.SENTINEL] = 77
+    lens[lens == 0] = L
+    mask = {"all_live": np.ones(H, bool),
+            "half_random": rng.random(H) < 0.5,
+            "prefix_half": np.arange(H) < H // 2,
+            "prefix_few": np.arange(H) < 9,
+            "none_live": np.zeros(H, bool),
+            "mixed_lengths": rng.random(H) < 0.5,
+            "scores_le_0": np.ones(H, bool)}[name]
+    cands = np.where(mask, cands, nw_band.SENTINEL).astype(np.int32)
+    if name == "mixed_lengths":
+        lens[:8] = (0, 1, L, L + 1, 1, L, 0, L + 1)
+        cands[:8] = 100 + np.arange(8)
+    args[1], args[2] = torch.from_numpy(cands), torch.from_numpy(lens)
+    boff, bw = cfg.band()
+    kw = dict(L=L, W=cfg.window_width(), slack=slack, boff=boff, bw=bw,
+              open_q=cfg.gap_open_q(), ext_q=cfg.gap_extend_q())
+    scores = nw_band.nw_scores_banded(
+        args[0], args[1][:, None].contiguous(), *args[2:],
+        **kw)[:, 0].contiguous()
+    if name == "scores_le_0":
+        kill = torch.from_numpy(rng.integers(0, 6, H))
+        scores = torch.where(kill == 0, 0, torch.where(
+            kill == 1, -5, torch.where(kill == 2, NEG_INF, scores))).to(
+                torch.int32)
+    full = [*args[:3], scores, args[3]]
+    n0 = nw_pure.LAUNCHES
+    p, j = nw_pure.nw_pure_banded(*(a.to(dev) for a in full), **kw)
+    torch.cuda.synchronize()
+    assert nw_pure.LAUNCHES == n0 + 1
+    wp, wj = nw_pure.nw_pure_banded(*full, **kw)
+    assert torch.equal(p.cpu(), wp) and torch.equal(j.cpu(), wj)
+    dead = (torch.from_numpy((cands == nw_band.SENTINEL) | (lens <= 0)
+                             | (lens > L)) | (scores <= 0))
+    assert not wp[dead].any() and not wj[dead].any()
+    if name in ("all_live", "prefix_half"):
+        assert wp.sum() > 20
+
+
+def _accum_set(rng, H, rowmul, n_real, order, R):
+    """Span starts with a pileup of 40 deltas on one block (longer than the
+    32 starts the kernel reads at a time) and of 20 on two alternating
+    neighbours inside [0, n_real); past n_real they are in no order."""
+    nrows = 2 * rowmul
+    base = rng.integers(0, R // rowmul - 2, H)
+    if n_real > 200:
+        base[100:140] = base[99]
+        base[150:170] = base[149] + np.arange(20) % 2
+    if order == "sorted":
+        base[:n_real] = np.sort(base[:n_real])
+    deltas = (rng.standard_normal((H, nrows, 128))
+              * 2.0 ** rng.integers(-20, 5, (H, nrows, 128))).astype(
+                  np.float32)
+    arr = rng.standard_normal((R, 128)).astype(np.float32)
+    return (torch.from_numpy(arr), torch.from_numpy(base.astype(np.int32)),
+            torch.from_numpy(deltas),
+            torch.tensor(n_real, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("rowmul", [1, 4])
+@pytest.mark.parametrize("n_real,order", [(3000, "sorted"), (811, "sorted"),
+                                          (1, "sorted"), (0, "sorted"),
+                                          (811, "any")])
+def test_accum_kernel_matches_plain_on_sets(n_real, order, rowmul):
+    """B5 == its serial plain version bit for bit, and a repeat launch gives
+    the same bits, with every slot live, a live part, one delta and none
+    (the launch alone), span starts in order and in any order; the starts
+    past n_real are in no order and must not be read."""
+    dev = _card()
+    rng = np.random.default_rng(rowmul + n_real)
+    arr, base, deltas, n = _accum_set(rng, 3000, rowmul, n_real, order,
+                                      512 * rowmul)
+    want = accum.apply_deltas(arr.clone(), base, deltas, n, rowmul=rowmul)
+    on = [x.to(dev) for x in (base, deltas, n)]
+    n0 = accum.LAUNCHES
+    got = [accum.apply_deltas(arr.to(dev), *on, rowmul=rowmul).cpu()
+           for _ in range(2)]
+    assert accum.LAUNCHES == n0 + 2
+    for g in got:
+        assert torch.equal(g.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got[0], arr) == (n_real == 0)
+
+
+@pytest.mark.parametrize("n_real,order", [(2989, "sorted"), (0, "sorted"),
+                                          (811, "any")])
+def test_accum_pair_kernel_matches_two_plain_calls(n_real, order):
+    """The pair entry: coverage (rowmul 1) and tallies (rowmul 4) in one
+    launch == the two plain calls, bit for bit, twice."""
+    dev = _card()
+    rng = np.random.default_rng(n_real)
+    cov, base, cov_d, n = _accum_set(rng, 3000, 1, n_real, order, 512)
+    tal = torch.from_numpy(rng.standard_normal((2048, 128)).astype(
+        np.float32))
+    tal_d = torch.from_numpy(
+        (rng.standard_normal((3000, 8, 128))
+         * 2.0 ** rng.integers(-20, 5, (3000, 8, 128))).astype(np.float32))
+    want = accum.apply_deltas_pair(cov.clone(), tal.clone(), base, cov_d,
+                                   tal_d, n)
+    on = [x.to(dev) for x in (base, cov_d, tal_d, n)]
+    n0 = accum.LAUNCHES
+    for _ in range(2):
+        got = accum.apply_deltas_pair(cov.to(dev), tal.to(dev), *on)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu().view(torch.int32),
+                               w.view(torch.int32))
+    assert accum.LAUNCHES == n0 + 2
 
 
 def test_device_accumulation_on_card_equals_cpu():

@@ -3,7 +3,8 @@
 card, on the same inputs, in turns.
 
     python3 tools/torch_kernel_ab.py --parent DIR [DIR ...]
-                                     [--kernel nw_band|nw_full|nw_tb]
+                                     [--kernel nw_band|nw_full|nw_tb|
+                                               nw_pure|accum]
                                      [--reps 20]
 
 Each DIR holds another checkout of this repository (for example the parent
@@ -14,8 +15,10 @@ Each side runs in its own process, builds its own kernel with nvcc and times
 the wrapper with chip_smoke.cuda_ms (CUDA events, median of --reps launches
 after a warm-up); the order is the parents, this checkout, this checkout, the
 parents in reverse.  One JSON line per set: every side's two times, and
-whether all outputs are equal.  Exits non-zero without a card or when any
-outputs differ.
+whether all outputs are equal.  accum's deltas and accumulators are drawn on
+the card from a seed by every side (they are too large for the file), and its
+output is the accumulator after one launch on a fresh copy.  Exits non-zero
+without a card or when any outputs differ.
 """
 
 from __future__ import annotations
@@ -108,6 +111,57 @@ def nw_tb_sets():
     return ("emis_t", "cands", "lens", "genome"), shared, sets, kw
 
 
+def nw_pure_sets():
+    """chip_smoke.py's hit-slot sets of the pure-diagonal kernel (16,384
+    slots, L = 104, scores from this checkout's B1) at band widths 42, 26
+    and 62; returns as score_sets.  Needs the card (for the scores)."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, ROOT)
+    from gnumap_tpu_torch.core import packing
+    from gnumap_tpu_torch.utils import sim
+    chip_smoke = load_chip_smoke()
+    genome = packing.encode(sim.random_genome(chip_smoke.GENOME_LEN, seed=0))
+    at = chip_smoke.TANDEM_AT
+    genome[at:at + 400] = np.tile(np.array([0, 1, 2, 3], np.int8), 100)
+    genome_t = torch.from_numpy(genome).cuda()
+    emis_t, by_slack = chip_smoke.b2_sets(np.random.default_rng(6), genome,
+                                          genome_t, 16_384)
+    sets = {}
+    for own, kw in by_slack.values():
+        for name, (cands, lens, scores) in own.items():
+            sets[f"bw{kw['bw']}_{name}"] = dict(
+                cands=cands, lens=lens, scores=scores,
+                **{"kw_" + k: v for k, v in kw.items()})
+    return (("emis_t", "cands", "lens", "scores", "genome"),
+            dict(emis_t=emis_t, genome=genome), sets, {})
+
+
+def accum_sets():
+    """chip_smoke.py's delta sets of the ordered accumulator (131,072 slots;
+    coverage and tallies shapes; n_real = all, 8,794, 1, 0 in order and
+    8,794 in any order): span starts and sizes only, the worker draws the
+    rest on the card (accum_args)."""
+    import numpy as np
+    chip_smoke = load_chip_smoke()
+    sets = {}
+    for k, (name, (base, n, rowmul, nrows, R)) in enumerate(
+            chip_smoke.b5_sets(np.random.default_rng(5)).items()):
+        sets[name] = dict(base_units=base, n_real=np.int32(n),
+                          nrows=np.int32(nrows), rows=np.int32(R),
+                          seed=np.int32(50 + k), kw_rowmul=rowmul)
+    return (("arr", "base_units", "deltas", "n_real"), {}, sets, {})
+
+
+def accum_args(z, name, dev):
+    """The accumulator kernel's arguments for one set, drawn on the card."""
+    own = {k: z[f"{k}__{name}"] for k in ("base_units", "n_real", "nrows",
+                                          "rows", "seed")}
+    return list(load_chip_smoke().b5_tensors(
+        own["base_units"], int(own["n_real"]), int(own["nrows"]),
+        int(own["rows"]), int(own["seed"]), dev))
+
+
 # kernel -> (module of its wrapper, wrapper, maker of its input sets)
 KERNELS = {
     "nw_band": ("gnumap_tpu_torch.align.nw_band", "nw_scores_banded",
@@ -115,6 +169,9 @@ KERNELS = {
     "nw_full": ("gnumap_tpu_torch.align.nw_full", "nw_scores_full",
                 lambda: score_sets(16)),
     "nw_tb": ("gnumap_tpu_torch.align.nw_tb", "nw_traceback", nw_tb_sets),
+    "nw_pure": ("gnumap_tpu_torch.align.nw_pure", "nw_pure_banded",
+                nw_pure_sets),
+    "accum": ("gnumap_tpu_torch.posterior.accum", "apply_deltas", accum_sets),
 }
 
 
@@ -146,19 +203,24 @@ def worker(root: str, kernel: str, inputs: str, reps: int) -> int:
               for a in order if "shared_" + a in z.files}
     out = {}
     for name in [str(s) for s in z["sets"]]:
-        args = [shared[a] if a in shared
-                else torch.from_numpy(z[f"{a}__{name}"]).to(dev)
-                for a in order]
         tail = "__" + name
         kw = dict(common, **{k[3:-len(tail)]: keyword(z[k]) for k in z.files
                              if k.startswith("kw_") and k.endswith(tail)})
-        got = fn(*args, **kw)
+        if kernel == "accum":      # in place: the output is a fresh copy's
+            args = accum_args(z, name, dev)
+            got = fn(args[0].clone(), *args[1:], **kw)
+        else:
+            args = [shared[a] if a in shared
+                    else torch.from_numpy(z[f"{a}__{name}"]).to(dev)
+                    for a in order]
+            got = fn(*args, **kw)
         torch.cuda.synchronize()
         got = got if isinstance(got, (tuple, list)) else (got,)
         sha = hashlib.sha1()
         for t in got:
             sha.update(t.cpu().numpy().tobytes())
         out[name] = [cuda_ms(lambda: fn(*args, **kw), reps), sha.hexdigest()]
+        del args, got
     print(json.dumps(out))
     return 0
 
