@@ -79,6 +79,28 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              n_real = 0 floor, and device_accumulate with and without B5
              (the work around the kernel); then the CLI with --accumulate
              device --snp on 1,024 config-2 reads against --accumulate host
+  map_bs     the reference's bench config 4 (build_config4): 16,384
+             bisulfite-converted reads against a 46,709,983-base genome on
+             the per-strand collapsed CSR pair (-m 16, base-3 seeds),
+             TorchMapper and map_stream, SAM on; then the CLI's -b on 1,024
+             bisulfite reads against the map phase's genome three ways
+             (--device cuda, --device cpu, -b --index-type fm): equal SAM
+             bodies and SGR bytes
+  map_fm     the reference's bench config 6: the map phase's CLI command
+             with --index-type fm; SAM body and SGR bytes equal the map
+             phase's; the FM search (index/fm.fm_hits) and the CSR gather
+             (csr_hits) timed on the same seeds of the first batch, and the
+             whole seeding stage of each
+  map_seg    the reference's bench config 7 (build_config7): a
+             46,709,983-base genome (2% repeats) as two contigs, 8,192 reads
+             from each, GlobalSegmentedMapper(n_segments=2) against
+             TorchMapper on the whole genome, SAM on: equal SAM and coverage;
+             then the CLI's --segments 2 against no segments on the map
+             phase's genome split in two contigs
+The three last print reads/s, the card's kernel and copy time of a warm
+repeat under torch.profiler (its wall, and so the idle share beside it,
+includes the profiler's own cost) and the peak device memory of their main
+run beside what earlier phases still held when it started.
 Each map phase sets every launch count to 0 before its run and fails unless
 the kernels of its path launched.  Each kernel is timed on the inputs of its
 path's first call beside its bound: the least time the card could take for
@@ -109,7 +131,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernel_b1", "kernel_b2", "kernel_b3",
           "kernel_b4", "kernel_b5", "map", "map_host", "map_indel", "parity",
-          "map_unbanded", "map_acc")
+          "map_unbanded", "map_acc", "map_bs", "map_fm", "map_seg")
 GENOME_LEN = 4_641_652
 N_READS = 16_384
 READ_LEN = 100
@@ -135,10 +157,15 @@ KERNELS = {   # name -> (source, the Pallas kernel it replaces)
 PATHS = {"map": (("nw_band", "nw_pure", "nw_tb"), ("nw_full", "accum")),
          "map_unbanded": (("nw_full", "nw_tb"),
                           ("nw_band", "nw_pure", "accum")),
-         "map_acc": (("nw_band", "nw_pure", "nw_tb", "accum"), ("nw_full",))}
+         "map_acc": (("nw_band", "nw_pure", "nw_tb", "accum"), ("nw_full",)),
+         "map_bs": (("nw_band", "nw_pure", "nw_tb"), ("nw_full", "accum")),
+         "map_fm": (("nw_band", "nw_pure", "nw_tb"), ("nw_full", "accum")),
+         "map_seg": (("nw_band", "nw_pure", "nw_tb"), ("nw_full", "accum"))}
 # launches a path makes exactly: B2 once a batch on map (2 batches); B5 once
 # a batch on map_acc, coverage and tallies in one launch
-PATH_LAUNCHES = {"map": {"nw_pure": 2}, "map_acc": {"accum": 2}}
+PATH_LAUNCHES = {"map": {"nw_pure": 2}, "map_acc": {"accum": 2},
+                 "map_bs": {"nw_pure": 2}, "map_fm": {"nw_pure": 2},
+                 "map_seg": {"nw_pure": 4}}
 # the path whose launch counts a kernel reports
 OWN_PATH = {"nw_band": "map", "nw_pure": "map", "nw_tb": "map",
             "nw_full": "map_unbanded", "accum": "map_acc"}
@@ -1287,6 +1314,21 @@ def map_unbanded(tmp, fq, fa, pl, wrappers):
     return res, launches, spies
 
 
+BIG_GENOME = 46_709_983
+
+
+def lazy_records(reads):
+    """Read records with lazy PWMs (rebuilt on the device from the quals),
+    as the FASTQ path gives them."""
+    import numpy as np
+    from gnumap_tpu_torch.core import packing
+    from gnumap_tpu_torch.io import fastq as io_fastq
+    return [io_fastq.ReadRecord(
+        r.name, packing.encode(r.seq), None,
+        (np.frombuffer(r.qual.encode(), np.uint8).astype(np.int32)
+         - 33).astype(np.int16)) for r in reads]
+
+
 def build_config10():
     """The reference's bench config 10, "SNP clustered-pileup accumulate
     A/B": a 46,709,983-base genome (seed 0) with 40 repeat families x 20
@@ -1298,9 +1340,7 @@ def build_config10():
     index, read records with lazy PWMs)."""
     import numpy as np
     from gnumap_tpu_torch.config import MapperConfig
-    from gnumap_tpu_torch.core import packing
     from gnumap_tpu_torch.index import builder
-    from gnumap_tpu_torch.io import fastq as io_fastq
     from gnumap_tpu_torch.utils import sim
     n_reads, read_len, unit_len = N_READS, READ_LEN, 300
     cfg = MapperConfig(mer_size=13, seed_jump=5, batch_size=8192,
@@ -1308,7 +1348,7 @@ def build_config10():
                        max_hits_per_seed=24, sam_out=False, sgr_out=False,
                        snp_mode=True, hit_capacity=8)
     genome, spots = sim.random_genome_families(
-        46_709_983, seed=0, n_families=40, copies=20, unit_len=unit_len)
+        BIG_GENOME, seed=0, n_families=40, copies=20, unit_len=unit_len)
     gen = builder.Genome.from_contigs([("ref_sim", genome)])
     idx = builder.build_index(gen, cfg)
     n_rep = n_reads // 4
@@ -1319,11 +1359,7 @@ def build_config10():
              + sim.simulate_reads(genome, n_rep, read_len, seed=9,
                                   sub_rate=0.01, contig="ref_sim",
                                   positions=starts))
-    recs = [io_fastq.ReadRecord(
-        r.name, packing.encode(r.seq), None,
-        (np.frombuffer(r.qual.encode(), np.uint8).astype(np.int32)
-         - 33).astype(np.int16)) for r in reads]
-    return cfg, gen, idx, recs
+    return cfg, gen, idx, lazy_records(reads)
 
 
 def map_acc(tmp, fa, reads, pl, wrappers):
@@ -1448,6 +1484,320 @@ def map_acc(tmp, fa, reads, pl, wrappers):
                         device_reads_per_s=cli["device"][3],
                         host_reads_per_s=cli["host"][3]))
     return res, failures, launches, spies
+
+
+def device_profile(fn):
+    """fn() once more under torch.profiler: (fn's result, the card's kernel
+    and copy time in ms, the number of such events, the five costliest by
+    name).  A card with no traced device time reads 0."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        rows.append((us / 1e3, e.count, e.key[:60]))
+    rows.sort(reverse=True)
+    return res, dict(device_ms=sum(r[0] for r in rows),
+                     device_events=sum(r[1] for r in rows),
+                     top=[dict(name=k, ms=ms, count=c)
+                          for ms, c, k in rows[:5]])
+
+
+def run_stream(pl, mapper, batches):
+    """map_stream over pre-parsed batches with SAM in memory; returns
+    (MapResult, wall seconds of the stream alone)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pl.map_stream(mapper, iter(batches), collect_sam=True)
+    return res, time.perf_counter() - t0
+
+
+def sam_lines_accuracy(tmp, name, lines):
+    path = os.path.join(tmp, name + ".sam")
+    with open(path, "w") as f:
+        f.writelines(lines)
+    return sam_accuracy(path)
+
+
+def build_config4():
+    """The reference's bench config 4, "chr21-scale bisulfite": a
+    46,709,983-base genome (seed 0, no repeats), 16,384 bisulfite-converted
+    reads of 100 bp at 1% substitutions (seed 7), -m 16 -j 5, max_hits 8,
+    32 candidates, L 104, batches of 8,192; SAM on (for the accuracy).
+    Returns (cfg, genome, per-strand collapsed CSR pair, read records)."""
+    from gnumap_tpu_torch.config import MapperConfig
+    from gnumap_tpu_torch.index import builder
+    from gnumap_tpu_torch.utils import sim
+    cfg = MapperConfig(mer_size=16, seed_jump=5, batch_size=8192,
+                       max_read_len=104, max_candidates=32,
+                       max_hits_per_seed=8, sam_out=True, sgr_out=False,
+                       bisulfite=True)
+    genome = sim.random_genome(BIG_GENOME, seed=0)
+    gen = builder.Genome.from_contigs([("ref_sim", genome)])
+    idx = builder.build_bs_index(gen, cfg)
+    reads = sim.simulate_reads(genome, N_READS, READ_LEN, seed=7,
+                               sub_rate=0.01, contig="ref_sim",
+                               bisulfite=True)
+    return cfg, gen, idx, lazy_records(reads)
+
+
+def map_bs(tmp, fa, genome_str, pl, wrappers):
+    """Bench config 4 through TorchMapper and map_stream on the card
+    (counted), then a warm profiled repeat; then the CLI's -b on 1,024
+    bisulfite reads against the map phase's genome: --device cuda, --device
+    cpu and -b --index-type fm.  Returns (result, failures, launches,
+    spies)."""
+    import torch
+    from gnumap_tpu_torch.io import fastq as io_fastq
+    from gnumap_tpu_torch.utils import sim
+    t0 = time.perf_counter()
+    cfg, gen, idx, recs = build_config4()
+    batches = list(io_fastq.batch_reads(iter(recs), cfg))
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    m = pl.TorchMapper(gen, idx, cfg, device="cuda")
+    (res, wall), launches, spies = drive(
+        lambda: run_stream(pl, m, batches), PATHS["map_bs"][0], wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    (res2, wall2), prof = device_profile(lambda: run_stream(pl, m, batches))
+    del m
+    torch.cuda.empty_cache()
+    n, n_mapped, acc = sam_lines_accuracy(tmp, "bs", res.sam_lines)
+    failures = []
+    if n != N_READS or acc < 0.999 or res2.sam_lines != res.sam_lines:
+        failures.append(f"map_bs: reads {n} accuracy {acc}")
+    # the CLI's -b three ways on 1,024 bisulfite reads of the map genome
+    reads = sim.simulate_reads(genome_str, 1024, READ_LEN, seed=12,
+                               sub_rate=0.01, contig="ref_sim",
+                               bisulfite=True)
+    fq = os.path.join(tmp, "bs.fastq")
+    sim.write_fastq(fq, reads)
+    cli = {}
+    for run, extra in (("cuda", ["--device", "cuda"]),
+                       ("cpu", ["--device", "cpu"]),
+                       ("fm_cuda", ["--index-type", "fm", "--device",
+                                    "cuda"])):
+        o = os.path.join(tmp, "bs_" + run)
+        d = run_cli(["-g", fa, "-o", o, *CLI_ARGS, "-b", *extra, fq])
+        cli[run] = (sam_body(o + ".sam"), file_bytes(o + ".sgr"),
+                    d["map_s"], sam_accuracy(o + ".sam"))
+    cli_equal = len({v[:2] for v in cli.values()}) == 1
+    if not cli_equal or cli["cuda"][3][2] < 0.999:
+        failures.append(f"map_bs cli: equal {cli_equal} accuracy "
+                        f"{cli['cuda'][3][2]}")
+    out = dict(genome_len=len(gen.codes), reads=n, batch=cfg.batch_size,
+               mer_size=cfg.mer_size, buckets_per_strand=3 ** cfg.mer_size
+               + 1, setup_s=setup_s, mapped=n_mapped,
+               mapped_reference_bench=16_380,
+               mapped_rate=n_mapped / max(n, 1), accuracy=acc,
+               launches=launches, candidates=res.stats.n_candidates,
+               map_s=wall, reads_per_s=n / wall, warm_map_s=wall2,
+               warm_reads_per_s=n / wall2, **prof,
+               profiled_idle_share=1 - prof["device_ms"] / 1e3 / wall2,
+               peak_device_bytes=peak, held_before_bytes=held,
+               cli=dict(reads=1024, equal=cli_equal,
+                        accuracy=cli["cuda"][3][2],
+                        mapped=cli["cuda"][3][1],
+                        map_s={k: v[2] for k, v in cli.items()}))
+    return out, failures, launches, spies
+
+
+def map_fm(tmp, fa, fq, csr_out, pl, wrappers):
+    """Bench config 6: the map phase's CLI command with --index-type fm
+    (counted), byte-equal to the CSR run's SAM body and SGR, and a warm
+    profiled repeat (its device time includes the index upload); then the
+    FM search and the CSR gather, and the whole seeding stage on each
+    index, timed on the first batch's seeds.  Returns (result, failures, launches,
+    spies)."""
+    import numpy as np
+    import torch
+    from gnumap_tpu_torch.config import MapperConfig
+    from gnumap_tpu_torch.index import builder, fm
+    from gnumap_tpu_torch.io import fastq as io_fastq
+    o = os.path.join(tmp, "fm")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    done, launches, spies = drive(
+        lambda: run_cli(["-g", fa, "-o", o, *CLI_ARGS, "--index-type", "fm",
+                         "--device", "cuda", fq]), PATHS["map_fm"][0],
+        wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    warm, prof = device_profile(lambda: run_cli(
+        ["-g", fa, "-o", o + "_warm", *CLI_ARGS, "--index-type", "fm",
+         "--device", "cuda", fq]))
+    if not os.path.exists(csr_out + ".sam"):
+        run_cli(["-g", fa, "-o", csr_out, *CLI_ARGS, "--device", "cuda", fq])
+    equal = (sam_body(o + ".sam") == sam_body(csr_out + ".sam")
+             and file_bytes(o + ".sgr") == file_bytes(csr_out + ".sgr"))
+    n, n_mapped, acc = sam_accuracy(o + ".sam")
+    failures = []
+    if not equal or n != N_READS or acc < 0.999:
+        failures.append(f"map_fm: equal to csr {equal} accuracy {acc}")
+    # seeds of the first batch, both strands, on both indexes
+    cfg = MapperConfig(mer_size=12, seed_jump=5, max_read_len=104,
+                       max_candidates=32, batch_size=8192)
+    gen = builder.Genome.from_fasta(fa)
+    t0 = time.perf_counter()
+    fmi = fm.build_fm_index(gen, cfg)
+    fm_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csr = builder.build_index(gen, cfg)
+    csr_build_s = time.perf_counter() - t0
+    batch = next(io_fastq.batch_reads_native(fq, cfg))
+    m_fm = pl.TorchMapper(gen, fmi, cfg, device="cuda")
+    m_csr = pl.TorchMapper(gen, csr, cfg, device="cuda")
+    dev = torch.device("cuda")
+    codes = torch.from_numpy(np.asarray(batch.codes, np.int8)).to(dev)
+    lens = torch.from_numpy(np.asarray(batch.lens, np.int32)).to(dev)
+    rc, _ = pl.revcomp_batch(codes, torch.zeros(
+        codes.shape + (4,), dtype=torch.int32, device=dev), lens)
+    codes2 = torch.cat([codes, rc], dim=0)
+    st = m_fm.state
+    off = st["offsets"]
+    km, bad = pl.seed_kmers(codes2, off, cfg.mer_size)
+    fm_args = [st[k] for k in ("sa", "bwt_words", "occ", "c_table")]
+    cs = m_csr.state
+    a = fm.fm_hits(km, bad, *fm_args, off, cfg)
+    b = pl.csr_hits(km, bad, cs["bucket_start"], cs["positions"], off, cfg)
+    same_sets = bool(torch.equal(torch.sort(a, dim=-1).values,
+                                 torch.sort(b, dim=-1).values))
+    seed_equal = all(torch.equal(x, y) for x, y in zip(m_fm._seed(codes2),
+                                                       m_csr._seed(codes2)))
+    if not (same_sets and seed_equal):
+        failures.append(f"map_fm: FM and CSR candidates differ (sets "
+                        f"{same_sets}, seed stage {seed_equal})")
+    res = dict(reads=n, mapped=n_mapped, mapped_rate=n_mapped / max(n, 1),
+               accuracy=acc, equal_to_csr=equal, launches=launches,
+               map_s=done["map_s"], reads_per_s=done["reads_per_s"],
+               device_s=done["device_s"], host_s=done["host_s"],
+               index_s=done["index_s"], peak_device_bytes=peak,
+               held_before_bytes=held,
+               warm_map_s=warm["map_s"], warm_reads_per_s=warm[
+                   "reads_per_s"], **prof, fm_build_s=fm_build_s, csr_build_s=csr_build_s,
+               sa_entries=int(fmi.sa.shape[0]),
+               seed_rows=int(codes2.shape[0]), seeds_per_row=int(
+                   off.shape[0]), live_seeds=int((~bad).sum()),
+               candidates=int((a != pl.SENTINEL).sum()),
+               same_candidate_sets=same_sets, seed_stage_equal=seed_equal,
+               fm_hits_ms=cuda_ms(lambda: fm.fm_hits(
+                   km, bad, *fm_args, off, cfg), 20),
+               csr_hits_ms=cuda_ms(lambda: pl.csr_hits(
+                   km, bad, cs["bucket_start"], cs["positions"], off, cfg),
+                   20),
+               seed_stage_fm_ms=cuda_ms(lambda: m_fm._seed(codes2), 10),
+               seed_stage_csr_ms=cuda_ms(lambda: m_csr._seed(codes2), 10))
+    del m_fm, m_csr
+    torch.cuda.empty_cache()
+    return res, failures, launches, spies
+
+
+def build_config7():
+    """The reference's bench config 7, "chr21-scale segmented genome (2
+    segments)" (bench.py's build_workload): a 46,709,983-base genome (seed
+    0, 2% repeats) as two contigs split at its half, 8,192 reads of 100 bp
+    at 1% substitutions from each (seeds 7 and 8, contig-local truth), -m 13
+    -j 5, max_hits 8, 32 candidates, L 104, batches of 8,192; SAM and SGR
+    on.  Returns (cfg, genome, read records)."""
+    from gnumap_tpu_torch.config import MapperConfig
+    from gnumap_tpu_torch.index import builder
+    from gnumap_tpu_torch.utils import sim
+    cfg = MapperConfig(mer_size=13, seed_jump=5, batch_size=8192,
+                       max_read_len=104, max_candidates=32,
+                       max_hits_per_seed=8, sam_out=True, sgr_out=True)
+    genome = sim.random_genome(BIG_GENOME, seed=0, repeat_frac=0.02)
+    half = BIG_GENOME // 2
+    gen = builder.Genome.from_contigs([("ref_sim", genome[:half]),
+                                       ("ref_sim2", genome[half:])])
+    reads = (sim.simulate_reads(genome[:half], N_READS // 2, READ_LEN,
+                                seed=7, sub_rate=0.01, contig="ref_sim")
+             + sim.simulate_reads(genome[half:], N_READS - N_READS // 2,
+                                  READ_LEN, seed=8, sub_rate=0.01,
+                                  contig="ref_sim2"))
+    return cfg, gen, lazy_records(reads)
+
+
+def map_seg(tmp, fq, genome_str, pl, wrappers):
+    """Bench config 7 through GlobalSegmentedMapper(n_segments=2) on the
+    card (counted), a warm profiled repeat, and TorchMapper on the whole
+    genome: equal SAM and coverage; then the CLI's --segments 2 against no
+    segments on the map genome split in two contigs.  Returns (result,
+    failures, launches, spies)."""
+    import numpy as np
+    import torch
+    from gnumap_tpu_torch.dist import segments
+    from gnumap_tpu_torch.index import builder
+    from gnumap_tpu_torch.io import fastq as io_fastq
+    from gnumap_tpu_torch.utils import sim
+    t0 = time.perf_counter()
+    cfg, gen, recs = build_config7()
+    batches = list(io_fastq.batch_reads(iter(recs), cfg))
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    seg = segments.GlobalSegmentedMapper(gen, cfg, device="cuda",
+                                         n_segments=2)
+    seg_index_s = time.perf_counter() - t0
+    (res, wall), launches, spies = drive(
+        lambda: run_stream(pl, seg, batches), PATHS["map_seg"][0], wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    (res2, wall2), prof = device_profile(lambda: run_stream(pl, seg,
+                                                            batches))
+    n_seg, bases = seg.n_segments, list(seg.bases)
+    del seg
+    torch.cuda.empty_cache()
+    whole = pl.TorchMapper(gen, builder.build_index(gen, cfg), cfg,
+                           device="cuda")
+    resw, wallw = run_stream(pl, whole, batches)
+    del whole
+    torch.cuda.empty_cache()
+    equal = (res.sam_lines == resw.sam_lines == res2.sam_lines
+             and np.array_equal(res.coverage, resw.coverage))
+    n, n_mapped, acc = sam_lines_accuracy(tmp, "seg", res.sam_lines)
+    failures = []
+    if not equal or n != N_READS or acc < 0.999 or n_seg != 2:
+        failures.append(f"map_seg: equal to whole {equal} accuracy {acc} "
+                        f"segments {n_seg}")
+    # the CLI: --segments 2 against none, the map genome in two contigs
+    half = len(genome_str) // 2
+    fa2 = os.path.join(tmp, "genome2.fa")
+    sim.write_fasta(fa2, [("ref_a", genome_str[:half]),
+                          ("ref_b", genome_str[half:])])
+    cli = {}
+    for run, extra in (("segments_2", ["--segments", "2"]), ("whole", [])):
+        o = os.path.join(tmp, "seg_" + run)
+        d = run_cli(["-g", fa2, "-o", o, *CLI_ARGS, "--device", "cuda",
+                     *extra, fq])
+        cli[run] = (sam_body(o + ".sam"), file_bytes(o + ".sgr"),
+                    d["segments"], d["reads_per_s"])
+    cli_equal = cli["segments_2"][:2] == cli["whole"][:2]
+    if not cli_equal or (cli["segments_2"][2], cli["whole"][2]) != (2, 1):
+        failures.append(f"map_seg cli: equal {cli_equal}")
+    out = dict(genome_len=len(gen.codes), segments=n_seg,
+               segment_bases=bases, reads=n, setup_s=setup_s,
+               segment_index_s=seg_index_s, mapped=n_mapped,
+               mapped_reference_bench=16_120,
+               mapped_rate=n_mapped / max(n, 1), accuracy=acc,
+               launches=launches, candidates=res.stats.n_candidates,
+               map_s=wall, reads_per_s=n / wall, warm_map_s=wall2,
+               warm_reads_per_s=n / wall2, whole_map_s=wallw,
+               whole_reads_per_s=n / wallw, equal_to_whole=equal, **prof,
+               profiled_idle_share=1 - prof["device_ms"] / 1e3 / wall2,
+               peak_device_bytes=peak, held_before_bytes=held,
+               cli=dict(equal=cli_equal,
+                        reads_per_s={k: v[3] for k, v in cli.items()}))
+    return out, failures, launches, spies
 
 
 def main(argv=None) -> int:
@@ -1832,6 +2182,24 @@ def main(argv=None) -> int:
             emit("map_acc", **res)
             failures.extend(fails)
             path_done("map_acc", launches, spies)
+        if "map_bs" in only:
+            res, fails, launches, spies = map_bs(tmp, fa, genome_str, pl,
+                                                 wrappers)
+            emit("map_bs", **res)
+            failures.extend(fails)
+            path_done("map_bs", launches, spies)
+        if "map_fm" in only:
+            res, fails, launches, spies = map_fm(tmp, fa, fq, out, pl,
+                                                 wrappers)
+            emit("map_fm", **res)
+            failures.extend(fails)
+            path_done("map_fm", launches, spies)
+        if "map_seg" in only:
+            res, fails, launches, spies = map_seg(tmp, fq, genome_str, pl,
+                                                  wrappers)
+            emit("map_seg", **res)
+            failures.extend(fails)
+            path_done("map_seg", launches, spies)
 
     if failures:
         raise RuntimeError("; ".join(failures))

@@ -10,9 +10,12 @@ Usage:
 runs the device finish (retention, pure-diagonal detection and traceback
 on the device), as the JAX CLI does on its accelerator; the host finish
 is reached through the API, ``TorchMapper(..., finish_impl="host")``.
-``--accumulate device`` keeps coverage and SNP tallies on the device.  Flags
-of paths not yet ported (multi-host, sharded, segmented, FM index,
-bisulfite) raise NotImplementedError.
+``--accumulate device`` keeps coverage and SNP tallies on the device.
+``-b`` maps bisulfite reads (the per-strand collapsed index pair),
+``--index-type fm`` seeds from the FM index, and ``--segments N`` (or a
+genome past SEG_LIMIT) splits the genome into contig-aligned segments, one
+index and one device state each (dist/segments.py).  Flags of paths not yet
+ported (multi-host, read / index shards) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,12 +28,10 @@ import sys
 import time
 
 from gnumap_tpu_torch.config import MapperConfig
-from gnumap_tpu_torch.index import builder, store
+from gnumap_tpu_torch.dist.segments import SEG_LIMIT, GlobalSegmentedMapper
+from gnumap_tpu_torch.index import builder, fm, store
 from gnumap_tpu_torch.io import fastq as io_fastq, sam as sam_io, sgr as sgr_io
 from gnumap_tpu_torch.pipeline import mapper as pl
-
-# largest genome one int32 CSR index addresses (gnumap_tpu/dist/segments.py)
-SEG_LIMIT = (1 << 31) - (1 << 24)
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -56,7 +57,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--sort-sam", action="store_true",
                    help="coordinate-sort the SAM output (samtools order)")
     p.add_argument("--index-type", choices=["csr", "fm"], default="csr",
-                   help="seed index backend (only csr is ported)")
+                   help="seed index backend: csr (dense k-mer table) "
+                        "or fm (BWT / FM index)")
     p.add_argument("--gap-open", type=float, default=4.0)
     p.add_argument("--gap-extend", type=float, default=1.0)
     p.add_argument("--match", type=float, default=1.0)
@@ -66,7 +68,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--adaptor", default=None,
                    help="3' adaptor sequence to trim (ref adaptor flag)")
     p.add_argument("-b", "--bisulfite", action="store_true",
-                   help="bisulfite C->T asymmetric scoring (not yet ported)")
+                   help="bisulfite C->T asymmetric scoring (GNUMAP-bs)")
     p.add_argument("--snp", action="store_true",
                    help="per-base tallies + SNP p-values (GNUMAP-SNP)")
     p.add_argument("-B", "--batch-size", type=int, default=4096)
@@ -98,8 +100,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--index-shards", type=int, default=1,
                    help="shard the k-mer index (not yet ported)")
     p.add_argument("--segments", default="auto",
-                   help="position-partition the genome (not yet ported; "
-                        "'auto' maps unsegmented)")
+                   help="position-partition the genome into N contig-"
+                        "aligned segments ('auto': segments only past the "
+                        "int32 limit)")
     p.add_argument("-v", "--verbose", action="store_true",
                    help="per-batch JSONL stats on stderr (ref -v)")
     p.add_argument("--num-hosts", type=int, default=1,
@@ -168,26 +171,21 @@ def batch_stream(paths, cfg, adaptor=None):
                                         cfg)
 
 
+_ACC_REFUSAL = ("--accumulate device is the single-device TpuMapper path; "
+                "segmented and sharded runs use host accumulation")
+
+
 def _not_yet_ported(args) -> None:
     """Raise for every flag whose path the port does not have yet, after
     the refusals the JAX CLI makes for the same flags."""
     sharded = args.read_shards or args.index_shards > 1
-    if args.accumulate == "device" and (
-            sharded or (args.segments != "auto" and int(args.segments) > 1)):
-        raise SystemExit("--accumulate device is the single-device "
-                         "TpuMapper path; segmented and sharded runs use "
-                         "host accumulation")
+    if args.accumulate == "device" and sharded:
+        raise SystemExit(_ACC_REFUSAL)
     flags = []
     if args.num_hosts > 1:
         flags.append("--num-hosts > 1")
     if sharded:
         flags.append("--read-shards / --index-shards")
-    if args.segments != "auto" and int(args.segments) > 1:
-        flags.append("--segments > 1")
-    if args.index_type == "fm":
-        flags.append("--index-type fm")
-    if args.bisulfite:
-        flags.append("-b/--bisulfite")
     if flags:
         raise NotImplementedError(
             f"{', '.join(flags)}: not yet ported to gnumap_tpu_torch (use "
@@ -205,29 +203,53 @@ def main(argv=None) -> int:
                          "--save-index is given")
     _not_yet_ported(args)
     cfg = config_from_args(args)
+    n_segments = 0 if args.segments == "auto" else int(args.segments)
     t0 = time.perf_counter()
+    index = None
     if args.genome.endswith(".npz"):
         genome, index = store.load_index(args.genome)
         if index.mer_size != cfg.mer_size:
             raise SystemExit(
                 f"index mer_size {index.mer_size} != -m {cfg.mer_size}")
+        if n_segments > 1:
+            raise SystemExit("--segments needs a FASTA genome (per-segment "
+                             "indexes are built contig-aligned)")
     else:
         genome = builder.Genome.from_fasta(args.genome)
-        if len(genome.codes) > SEG_LIMIT:
-            raise NotImplementedError(
-                f"genome of {len(genome.codes)} bases needs segments (over "
-                f"{SEG_LIMIT}): not yet ported to gnumap_tpu_torch")
-        index = builder.build_index(genome, cfg)
+        segmented = n_segments > 1 or len(genome.codes) > SEG_LIMIT
+        if segmented and args.index_type == "fm":
+            raise SystemExit("--segments requires --index-type csr")
+        if not segmented:
+            if cfg.bisulfite:
+                index = (fm.build_bs_fm_index(genome, cfg)
+                         if args.index_type == "fm"
+                         else builder.build_bs_index(genome, cfg))
+            elif args.index_type == "fm":
+                index = fm.build_fm_index(genome, cfg)
+            else:
+                index = builder.build_index(genome, cfg)
     t_index = time.perf_counter() - t0
     if args.save_index:
+        if index is None:
+            raise SystemExit("--save-index is per-genome; segmented "
+                             "genomes rebuild per-segment indexes at "
+                             "map time")
         store.save_index(args.save_index, genome, index)
         print(json.dumps({"event": "index_saved", "path": args.save_index,
                           "seconds": round(t_index, 3)}))
         return 0
+    if args.accumulate == "device" and index is None:
+        raise SystemExit(_ACC_REFUSAL)
 
     t0 = time.perf_counter()
-    m = pl.TorchMapper(genome, index, cfg, device=args.device,
-                       accumulate=args.accumulate)
+    if index is None:
+        # segmented path (genome > int32 or --segments N): per-segment
+        # int32 indexes, global int64 coordinates, union posteriors
+        m = GlobalSegmentedMapper(genome, cfg, device=args.device,
+                                  n_segments=n_segments)
+    else:
+        m = pl.TorchMapper(genome, index, cfg, device=args.device,
+                           accumulate=args.accumulate)
     t_index += time.perf_counter() - t0
     sam_path = args.output + ".sam"
     sam_f = None
@@ -288,7 +310,7 @@ def main(argv=None) -> int:
     s = res.stats
     print(json.dumps({
         "event": "done", "device": str(m.device), "reads": s.n_reads,
-        "mapped": s.n_mapped, "segments": 1,
+        "mapped": s.n_mapped, "segments": getattr(m, "n_segments", 1),
         "multi_mapped": s.n_multi, "candidates": s.n_candidates,
         "dp_cells": s.dp_cells, "index_s": round(t_index, 3),
         "map_s": round(t_map, 3),

@@ -4,9 +4,9 @@ Reference analog: GNUMAP's optionally saved genome index (SURVEY.md §5
 "Checkpoint / resume": the only persistent artifact).  Stored as compressed
 npz — genome codes 2-bit packed with an N bitmask, CSR arrays verbatim.
 Config 5 (sharded human-genome index) shards with ``shard_index``.
-
-The FM index (``index/fm.py`` of the JAX package) is not ported yet: saving
-one, or loading a file of kind "fm" / "fm_bs", raises NotImplementedError.
+Four kinds: "csr", "csr_bs" (the bisulfite CSR pair), "fm" and "fm_bs" (the
+FM index and its bisulfite pair, ``index/fm.py``), in the JAX package's file
+format.
 """
 
 from __future__ import annotations
@@ -18,19 +18,13 @@ import numpy as np
 from gnumap_tpu_torch.config import BASE_N
 from gnumap_tpu_torch.core import packing
 from gnumap_tpu_torch.index.builder import BsIndexPair, CsrIndex, Genome
+from gnumap_tpu_torch.index.fm import FmBsPair, FmIndex
 
 _FORMAT_VERSION = 1
 
 
-def _fm_not_ported(what: str):
-    return NotImplementedError(
-        f"{what}: the FM index is not yet ported to gnumap_tpu_torch")
-
-
 def save_index(path: str, genome: Genome, index) -> None:
-    """Persist genome + seed index (``kind`` field: "csr" or "csr_bs")."""
-    if not isinstance(index, (CsrIndex, BsIndexPair)):
-        raise _fm_not_ported(f"save_index of a {type(index).__name__}")
+    """Persist genome + seed index (CSR or FM — ``kind`` field selects)."""
     n_mask = np.packbits(genome.codes == BASE_N)
     common = dict(
         version=np.int64(_FORMAT_VERSION),
@@ -41,13 +35,26 @@ def save_index(path: str, genome: Genome, index) -> None:
         starts=genome.starts, lengths=genome.lengths,
         mer_size=np.int64(index.mer_size))
     out = path if path.endswith(".npz") else path + ".npz"
-    if isinstance(index, BsIndexPair):
+    if isinstance(index, FmBsPair):
+        np.savez_compressed(out, kind="fm_bs",
+                            sa=index.plus.sa,
+                            bwt_words=index.plus.bwt_words,
+                            occ=index.plus.occ, c_table=index.plus.c_table,
+                            sa_minus=index.minus.sa,
+                            bwt_words_minus=index.minus.bwt_words,
+                            occ_minus=index.minus.occ,
+                            c_table_minus=index.minus.c_table, **common)
+    elif isinstance(index, BsIndexPair):
         np.savez_compressed(out, kind="csr_bs",
                             bucket_start=index.plus.bucket_start,
                             positions=index.plus.positions,
                             bucket_start_minus=index.minus.bucket_start,
                             positions_minus=index.minus.positions,
                             **common)
+    elif isinstance(index, FmIndex):
+        np.savez_compressed(out, kind="fm", sa=index.sa,
+                            bwt_words=index.bwt_words, occ=index.occ,
+                            c_table=index.c_table, **common)
     else:
         np.savez_compressed(out, kind="csr",
                             bucket_start=index.bucket_start,
@@ -65,9 +72,16 @@ def load_index(path: str) -> Tuple[Genome, CsrIndex]:
     genome = Genome(codes, [str(x) for x in z["names"]],
                     z["starts"], z["lengths"])
     kind = str(z["kind"]) if "kind" in z else "csr"
-    if kind in ("fm", "fm_bs"):
-        raise _fm_not_ported(f"load_index of kind {kind!r}")
-    if kind == "csr_bs":
+    if kind == "fm":
+        index = FmIndex(int(z["mer_size"]), z["sa"], z["bwt_words"],
+                        z["occ"], z["c_table"])
+    elif kind == "fm_bs":
+        m = int(z["mer_size"])
+        index = FmBsPair(
+            FmIndex(m, z["sa"], z["bwt_words"], z["occ"], z["c_table"]),
+            FmIndex(m, z["sa_minus"], z["bwt_words_minus"],
+                    z["occ_minus"], z["c_table_minus"]))
+    elif kind == "csr_bs":
         m = int(z["mer_size"])
         index = BsIndexPair(
             CsrIndex(m, z["bucket_start"], z["positions"]),

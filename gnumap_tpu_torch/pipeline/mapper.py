@@ -1,13 +1,16 @@
 """End-to-end batch mapper in PyTorch — the counterpart of
-gnumap_tpu/pipeline/mapper.py on its single-device CSR paths,
+gnumap_tpu/pipeline/mapper.py on its single-device paths,
 ``TpuMapper(align_impl="pallas")`` with ``finish_impl="device"`` (the
 default) or ``"host"`` and ``accumulate="host"`` (the default) or
-``"device"``:
+``"device"``, on any of the four seed indexes (CSR, the bisulfite CSR pair,
+FM, the bisulfite FM pair):
 
   device (torch, one explicit ``device``):
     * unpack reads + PWMs from the (qual, code) table (plain gathers)
     * both-strand expansion and integer emission tables (int32 multiply-adds)
-    * seeding: k-mer codes -> CSR gather -> dedupe-cap ([FROZEN v2] votes)
+    * seeding: k-mer codes (base-3 collapsed for the bisulfite CSR pair,
+      base-4 of the collapsed read for the FM pair) -> CSR gather or FM
+      backward search (index/fm.fm_hits) -> dedupe-cap ([FROZEN v2] votes)
     * scoring of every (read-strand, candidate) pair: banded, the CUDA
       kernel csrc/nw_band.cu on a card, its plain torch version on the CPU;
       unbanded when MapperConfig.band() is None (gap_slack >= 14),
@@ -30,8 +33,9 @@ default) or ``"host"`` and ``accumulate="host"`` (the default) or
       posterior weights
     * coverage / SNP-tally scatter, SAM records
 
-Not yet ported (raise): bisulfite and FM indexes, segments and the
-multi-host paths.
+Genome segments (genomes past the int32 limit, ``--segments``) run one
+TorchMapper a segment: dist/segments.py.  Not yet ported (raise): the
+multi-host and sharded paths.
 """
 
 from __future__ import annotations
@@ -47,7 +51,8 @@ import torch
 from gnumap_tpu_torch.align import scoring
 from gnumap_tpu_torch.config import NEG_INF, RATIO_BITS, MapperConfig
 from gnumap_tpu_torch.core import packing, pwm as pwm_mod
-from gnumap_tpu_torch.index.builder import BsIndexPair, CsrIndex, Genome
+from gnumap_tpu_torch.index.builder import BS_DIGITS, BsIndexPair, Genome
+from gnumap_tpu_torch.index.fm import FmBsPair, FmIndex, fm_hits
 from gnumap_tpu_torch.io import sam as sam_io
 from gnumap_tpu_torch.io.fastq import ReadBatch
 from gnumap_tpu_torch.oracle import oracle
@@ -117,6 +122,22 @@ def seed_kmers(codes2, offsets, m):
     bad = torch.zeros_like(km, dtype=torch.bool)
     for k in range(m):
         km = km * 4 + code4[:, offsets + k]
+        bad = bad | isn[:, offsets + k]
+    return km, bad
+
+
+def seed_kmers_b3(codes2, offsets, m, digits):
+    """Base-3 collapsed k-mer codes at the static seed offsets (bisulfite
+    seeding [FROZEN]; digit tables in index/builder.BS_DIGITS, int32 on the
+    device)."""
+    d = digits[codes2.long().clamp(0, 4)]
+    isn = d < 0
+    base = torch.where(isn, 0, d)
+    km = torch.zeros((codes2.shape[0], offsets.shape[0]), dtype=I32,
+                     device=codes2.device)
+    bad = torch.zeros_like(km, dtype=torch.bool)
+    for k in range(m):
+        km = km * 3 + base[:, offsets + k]
         bad = bad | isn[:, offsets + k]
     return km, bad
 
@@ -246,18 +267,52 @@ def strand_expand(codes, pwm_q, lens, S_plus, S_minus):
     return codes2, emis2
 
 
-def device_state(genome: Genome, index: CsrIndex, cfg: MapperConfig,
+def index_kind(index) -> str:
+    """"csr", "csr_bs", "fm" or "fm_bs": the seed-lookup backend of an
+    index (the reference's TpuMapper.index_kind)."""
+    if isinstance(index, BsIndexPair):
+        return "csr_bs"
+    if isinstance(index, FmBsPair):
+        return "fm_bs"
+    if isinstance(index, FmIndex):
+        return "fm"
+    return "csr"
+
+
+def _index_arrays(index) -> Dict[str, np.ndarray]:
+    """The index's device arrays by name, in index/store.py's names (the
+    minus strand's with a ``_minus`` suffix); the bisulfite CSR pair adds
+    its two base-3 digit tables."""
+    kind = index_kind(index)
+    if kind in ("csr_bs", "fm_bs"):
+        out = {}
+        for strand, sfx in ((index.plus, ""), (index.minus, "_minus")):
+            out.update({k + sfx: v for k, v in _index_arrays(strand).items()})
+        if kind == "csr_bs":
+            out.update(digits_ct=np.asarray(BS_DIGITS["ct"], np.int32),
+                       digits_ga=np.asarray(BS_DIGITS["ga"], np.int32))
+        return out
+    if kind == "fm":
+        return dict(sa=np.asarray(index.sa, np.int32),
+                    bwt_words=np.asarray(index.bwt_words, np.int32),
+                    occ=np.asarray(index.occ, np.int32),
+                    c_table=np.asarray(index.c_table, np.int32))
+    return dict(bucket_start=np.asarray(index.bucket_start, np.int32),
+                positions=np.asarray(index.positions, np.int32))
+
+
+def device_state(genome: Genome, index, cfg: MapperConfig,
                  device) -> Dict[str, torch.Tensor]:
     """The numpy arrays the device program reads (the reference's
-    device-resident "weights"), on ``device``: the CSR index, the int8
-    genome codes, both strands' substitution matrices, the PWM table and the
-    seed offsets.  ``index/store.load_index`` output loads straight in."""
+    device-resident "weights"), on ``device``: the seed index (any of the
+    four kinds, ``_index_arrays``), the int8 genome codes, both strands'
+    substitution matrices, the PWM table and the seed offsets.
+    ``index/store.load_index`` output loads straight in."""
     device = torch.device(device)
     S_plus, S_minus = scoring.matrices_for_mode(cfg)
     L, m = cfg.max_read_len, cfg.mer_size
     arrays = dict(
-        bucket_start=np.asarray(index.bucket_start, np.int32),
-        positions=np.asarray(index.positions, np.int32),
+        _index_arrays(index),
         g_codes=np.asarray(genome.codes, np.int8),
         S_plus=np.asarray(S_plus, np.int32),
         S_minus=np.asarray(S_minus, np.int32),
@@ -587,14 +642,16 @@ class TorchMapper:
     """Device-resident genome/index and the map program on one device.
 
     The counterpart of ``TpuMapper(align_impl="pallas", finish_impl=...,
-    accumulate=...)``.  ``finish_impl="device"`` (the default, None)
-    retains, tracebacks and compacts on the device and the host decodes one
-    blob; ``finish_impl="host"`` returns [cands | scores | max_sc] and the
+    accumulate=...)``; ``index`` is a CsrIndex, a BsIndexPair
+    (``cfg.bisulfite``), an FmIndex or an FmBsPair (``cfg.bisulfite``).
+    ``finish_impl="device"`` (the default, None) retains, tracebacks and
+    compacts on the device and the host decodes one blob;
+    ``finish_impl="host"`` returns [cands | scores | max_sc] and the
     host finishes each read.  ``accumulate="device"`` (device finish only)
     keeps coverage and SNP tallies on the device (device_accumulate), and
     map_stream fetches them only at checkpoints and at the end."""
 
-    def __init__(self, genome: Genome, index: CsrIndex, cfg: MapperConfig,
+    def __init__(self, genome: Genome, index, cfg: MapperConfig,
                  device="cuda", finish_impl: Optional[str] = None,
                  accumulate: str = "host"):
         self.device = _require_device(device)
@@ -609,14 +666,21 @@ class TorchMapper:
             raise ValueError("accumulate='device' requires "
                              "finish_impl='device'")
         self.accumulate = accumulate
-        if isinstance(index, BsIndexPair) or cfg.bisulfite:
-            raise NotImplementedError("bisulfite mode (BsIndexPair): not yet "
-                                      "ported to gnumap_tpu_torch")
-        if not isinstance(index, CsrIndex):
-            raise NotImplementedError(f"{type(index).__name__} seeding: not "
-                                      "yet ported to gnumap_tpu_torch")
         if index.mer_size != cfg.mer_size:
             raise ValueError("index mer_size != cfg.mer_size")
+        # seed-lookup backend: CSR (dense hash-as-arrays), FM (BWT), or the
+        # bisulfite per-strand collapsed pair of either; identical candidate
+        # sets per backend (index/fm.py docstring, builder.BsIndexPair)
+        self.index_kind = index_kind(index)
+        if cfg.bisulfite != self.index_kind.endswith("_bs"):
+            raise ValueError(
+                "bisulfite mode seeds on the per-strand collapsed alphabet "
+                "[FROZEN]: build the index with builder.build_bs_index or "
+                "fm.build_bs_fm_index (and only for bisulfite=True)")
+        if self.index_kind == "fm_bs" and cfg.mer_size > 15:
+            raise ValueError("FM bisulfite k-mer codes are base-4 int32: "
+                             "mer_size <= 15 (the CSR pair's base-3 table "
+                             "supports up to 18)")
         self.genome = genome
         self.index = index
         self.cfg = cfg
@@ -630,12 +694,47 @@ class TorchMapper:
     # Device program
     # ------------------------------------------------------------------
     def _seed(self, codes2):
-        """Candidate anchors per (read x strand) from the CSR index:
+        """Candidate anchors per (read x strand) from the seed index:
         int32[B2, C] + valid."""
         cfg, st = self.cfg, self.state
-        km, bad = seed_kmers(codes2, st["offsets"], cfg.mer_size)
-        cand = csr_hits(km, bad, st["bucket_start"], st["positions"],
-                        st["offsets"], cfg)
+        off, m = st["offsets"], cfg.mer_size
+        kind = self.index_kind
+
+        def fm_args(sfx):
+            return [st[k + sfx] for k in ("sa", "bwt_words", "occ",
+                                          "c_table")]
+
+        if kind == "csr_bs":
+            # bisulfite [FROZEN]: plus rows seed C->T-collapsed against the
+            # C->T genome index, minus (revcomp) rows G->A (GNUMAP-bs —
+            # conversion never breaks a seed); base-3 k-mer codes
+            B = codes2.shape[0] // 2
+            kmp, badp = seed_kmers_b3(codes2[:B], off, m, st["digits_ct"])
+            kmm, badm = seed_kmers_b3(codes2[B:], off, m, st["digits_ga"])
+            cand = torch.cat([
+                csr_hits(kmp, badp, st["bucket_start"], st["positions"],
+                         off, cfg),
+                csr_hits(kmm, badm, st["bucket_start_minus"],
+                         st["positions_minus"], off, cfg)], dim=0)
+        elif kind == "fm_bs":
+            # bisulfite on the FM backend: collapse the read halves, search
+            # each in its collapsed FM index (base-4 codes suffice — no
+            # dense bucket table to size)
+            B = codes2.shape[0] // 2
+            cp = torch.where(codes2[:B] == 1, 3, codes2[:B]).to(torch.int8)
+            cm = torch.where(codes2[B:] == 2, 0, codes2[B:]).to(torch.int8)
+            kmp, badp = seed_kmers(cp, off, m)
+            kmm, badm = seed_kmers(cm, off, m)
+            cand = torch.cat([
+                fm_hits(kmp, badp, *fm_args(""), off, cfg),
+                fm_hits(kmm, badm, *fm_args("_minus"), off, cfg)], dim=0)
+        else:
+            km, bad = seed_kmers(codes2, off, m)
+            if kind == "fm":
+                cand = fm_hits(km, bad, *fm_args(""), off, cfg)
+            else:
+                cand = csr_hits(km, bad, st["bucket_start"], st["positions"],
+                                off, cfg)
         cands = dedupe_cap(cand, cfg.max_candidates)
         return cands, cands != SENTINEL
 

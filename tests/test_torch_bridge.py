@@ -32,8 +32,9 @@ def port_iter(it):
 
 
 def test_to_port_rebuilds_by_fields():
-    """A MapperConfig, a genome with its index and a read batch cross as
-    their fields: equal values, the port's classes, shared arrays."""
+    """A MapperConfig, a genome with its indexes (the bisulfite CSR pair,
+    the FM index and its bisulfite pair) and a read batch cross as their
+    fields: equal values, the port's classes, shared arrays."""
     import numpy as np
     from gnumap_tpu import config as jconfig
     from gnumap_tpu.index import builder as jbuilder
@@ -54,6 +55,14 @@ def test_to_port_rebuilds_by_fields():
     assert type(ti) is tbuilder.BsIndexPair
     assert type(ti.plus) is tbuilder.CsrIndex
     assert np.array_equal(ti.minus.positions, ji.minus.positions)
+    from gnumap_tpu.index import fm as jfm
+    from gnumap_tpu_torch.index import fm as tfm
+    jf = jfm.build_bs_fm_index(jg, jc)
+    tf, tf1 = to_port((jf, jf.plus))
+    assert type(tf) is tfm.FmBsPair and type(tf1) is tfm.FmIndex
+    assert type(tf.minus) is tfm.FmIndex and tf.mer_size == 6
+    assert tf1.sa is jf.plus.sa and tf1.n == jf.plus.n
+    assert np.array_equal(tf.minus.occ, jf.minus.occ)
     rec = jfastq.ReadRecord("r", jg.codes[:8], None,
                             np.full(8, 30, np.int16))
     batches = list(port_iter(jfastq.batch_reads(iter([rec]), jc)))

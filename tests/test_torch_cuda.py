@@ -9,7 +9,9 @@ nw_full, B5 accum_rmw and its pair entry) is held to its plain torch version
 on the same inputs (exact equality; B5 bit for bit, and again on a repeat
 launch), and
 the mapper on the card to the mapper on the CPU, with the device finish,
-the host finish and device accumulation.
+the host finish and device accumulation; the FM search (index/fm.fm_hits),
+the bisulfite seeding (seed_kmers_b3) and the mapper on each index kind and
+through GlobalSegmentedMapper, on the card and on the CPU.
 """
 
 import numpy as np
@@ -19,7 +21,8 @@ import torch
 from gnumap_tpu_torch.align import scoring
 from gnumap_tpu_torch.config import NEG_INF, MapperConfig
 from gnumap_tpu_torch.core import packing, pwm
-from gnumap_tpu_torch.index import builder
+from gnumap_tpu_torch.dist import segments
+from gnumap_tpu_torch.index import builder, fm
 from gnumap_tpu_torch.io import fastq as io_fastq
 from gnumap_tpu_torch.utils import sim
 from gnumap_tpu_torch.align import nw_band, nw_full, nw_pure, nw_tb
@@ -574,3 +577,75 @@ def test_mapper_on_card_equals_cpu(finish_impl):
                        finish_impl=finish_impl).map_batch(batch)
     assert [[vars(h) for h in x] for x in a] == \
         [[vars(h) for h in x] for x in b]
+
+
+def test_fm_hits_and_seed_kmers_b3_on_card_equal_cpu():
+    """fm_hits (backward search + suffix-array gather) and seed_kmers_b3 on
+    the card equal the CPU's element for element, on genome windows with
+    substitutions and Ns, seeds of bench config 6 (-m 12 -j 5)."""
+    dev = _card()
+    cfg = MapperConfig(mer_size=12, seed_jump=5, max_read_len=104,
+                       max_candidates=32, max_hits_per_seed=64)
+    g = sim.random_genome(300_000, seed=5, repeat_frac=0.02)
+    gen = builder.Genome.from_contigs([("g", g)])
+    fmi = fm.build_fm_index(gen, cfg)
+    rng = np.random.default_rng(6)
+    starts = rng.integers(0, len(gen.codes) - 104, 512)
+    codes2 = gen.codes[starts[:, None] + np.arange(104)].copy()
+    sub = rng.random(codes2.shape) < 0.02
+    codes2[sub] = rng.integers(0, 5, int(sub.sum()))
+    offsets = np.arange(0, 104 - 12 + 1, 5, dtype=np.int64)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        c = torch.from_numpy(codes2).to(d)
+        off = torch.from_numpy(offsets).to(d)
+        km, bad = tm.seed_kmers(c, off, 12)
+        arrs = [torch.from_numpy(a).to(d) for a in (fmi.sa, fmi.bwt_words,
+                                                    fmi.occ, fmi.c_table)]
+        res = [km, bad, fm.fm_hits(km, bad, *arrs, off, cfg)]
+        off16 = torch.from_numpy(offsets[offsets <= 104 - 16]).to(d)
+        for col in ("ct", "ga"):
+            res += list(tm.seed_kmers_b3(c, off16, 16, torch.from_numpy(
+                builder.BS_DIGITS[col].astype(np.int32)).to(d)))
+        out[d.type] = [r.cpu() for r in res]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int((out["cpu"][2] != tm.SENTINEL).sum()) > 2000
+
+
+@pytest.mark.parametrize("kind", ["csr_bs", "fm", "fm_bs", "segments"])
+def test_mapper_kinds_on_card_equal_cpu(kind):
+    """TorchMapper on the bisulfite CSR pair, the FM index and the FM pair,
+    and GlobalSegmentedMapper over two contigs: SAM records and coverage
+    through map_stream equal on the card and on the CPU."""
+    dev = _card()
+    bs = kind.endswith("_bs")
+    cfg = MapperConfig(mer_size=12, seed_jump=5, batch_size=256,
+                       max_read_len=104, max_candidates=32, bisulfite=bs)
+    g = sim.random_genome(200_000, seed=3, repeat_frac=0.02)
+    gen = builder.Genome.from_contigs([("c1", g[:100_000]),
+                                       ("c2", g[100_000:])])
+    reads = (sim.simulate_reads(g[:100_000], 300, 100, seed=4,
+                                sub_rate=0.01, indel_rate=0.02, contig="c1",
+                                bisulfite=bs)
+             + sim.simulate_reads(g[100_000:], 300, 100, seed=5,
+                                  sub_rate=0.01, indel_rate=0.02,
+                                  contig="c2", bisulfite=bs))
+    recs = [io_fastq.ReadRecord(
+        r.name, packing.encode(r.seq), None,
+        (np.frombuffer(r.qual.encode(), np.uint8) - 33).astype(np.int16))
+        for r in reads]
+    idx = {"csr_bs": builder.build_bs_index, "fm": fm.build_fm_index,
+           "fm_bs": fm.build_bs_fm_index,
+           "segments": lambda *a: None}[kind](gen, cfg)
+    out = {}
+    for d in (dev, "cpu"):
+        m = (segments.GlobalSegmentedMapper(gen, cfg, device=d,
+                                            n_segments=2)
+             if idx is None else tm.TorchMapper(gen, idx, cfg, device=d))
+        res = tm.map_stream(m, io_fastq.batch_reads(iter(recs), cfg))
+        out[str(d)] = ("".join(res.sam_lines), res.coverage, res.stats)
+    (sam_c, cov_c, st_c), (sam_h, cov_h, st_h) = out["cuda"], out["cpu"]
+    assert sam_c == sam_h
+    assert np.array_equal(cov_c, cov_h)
+    assert st_c.n_mapped == st_h.n_mapped and st_c.n_mapped > 580

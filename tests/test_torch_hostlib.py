@@ -217,15 +217,17 @@ def test_builder_index_arrays(genome20k, kind, monkeypatch):
          "from_fasta")
 
 
-@pytest.mark.parametrize("kind", ["csr", "csr_bs"])
+@pytest.mark.parametrize("kind", ["csr", "csr_bs", "fm", "fm_bs"])
 @pytest.mark.parametrize("writer", ["jax", "port"])
 def test_store_round_trip(genome20k, kind, writer, tmp_path):
-    """An index saved by either package loads in both, equal to what was
-    saved; the shards are equal too."""
-    jc = jconfig.MapperConfig(mer_size=8, bisulfite=kind == "csr_bs")
+    """An index of each kind saved by either package loads in both, equal
+    to what was saved; the shards are equal too."""
+    from gnumap_tpu.index import fm as jfm
+    jc = jconfig.MapperConfig(mer_size=8, bisulfite=kind.endswith("_bs"))
     jg = jbuilder.Genome.from_contigs(genome20k)
-    ji = (jbuilder.build_bs_index(jg, jc) if kind == "csr_bs"
-          else jbuilder.build_index(jg, jc))
+    ji = {"csr": jbuilder.build_index, "csr_bs": jbuilder.build_bs_index,
+          "fm": jfm.build_fm_index,
+          "fm_bs": jfm.build_bs_fm_index}[kind](jg, jc)
     path = str(tmp_path / "idx.npz")
     if writer == "jax":
         jstore.save_index(path, jg, ji)
@@ -241,16 +243,49 @@ def test_store_round_trip(genome20k, kind, writer, tmp_path):
         same(jstore.shard_index(ji, 3), tstore.shard_index(ti2, 3), "shards")
 
 
-def test_store_fm_kinds_raise_not_yet_ported(genome20k, tmp_path):
-    from gnumap_tpu.index import fm
-    jc = jconfig.MapperConfig(mer_size=8)
-    jg = jbuilder.Genome.from_contigs(genome20k[:1])
-    path = str(tmp_path / "fm.npz")
-    jstore.save_index(path, jg, fm.build_fm_index(jg, jc))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tstore.load_index(path)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tstore.save_index(path, to_port(jg), object())
+@pytest.mark.parametrize("sa", ["native", "numpy"])
+def test_fm_index_numpy_half(genome20k, sa, monkeypatch, tmp_path):
+    """index/fm.py's numpy half: suffix_array (native SA-IS and the numpy
+    prefix doubling), pack_4bit, build_fm_index and build_bs_fm_index
+    arrays, rank / search_range / lookup, save / load."""
+    from gnumap_tpu.align import nw_pallas
+    from gnumap_tpu.index import fm as jfm
+    from gnumap_tpu_torch.index import fm as tfm
+    if sa == "numpy":
+        monkeypatch.setattr(jnative, "available", lambda: False)
+        monkeypatch.setattr(tnative, "available", lambda: False)
+    elif not (tnative.available() and jnative.available()):
+        pytest.skip("native host library unavailable (no C++ compiler)")
+    for name in ("OCC_BLOCK", "N_SYMS"):
+        same(getattr(jfm, name), getattr(tfm, name), name)
+    rng = np.random.default_rng(15)
+    codes = rng.integers(0, 5, 3001).astype(np.int8)
+    codes[:600] = np.tile(codes[:40], 15)                 # repeats
+    same(jfm.suffix_array(codes), tfm.suffix_array(codes), "suffix_array")
+    for n in (0, 1, 7, 8, 9, 17):
+        same(nw_pallas.pack_4bit(codes[:n]), tfm.pack_4bit(codes[:n]),
+             f"pack_4bit {n}")
+    jc, tc = (jconfig.MapperConfig(mer_size=7),
+              tconfig.MapperConfig(mer_size=7))
+    contigs = [(n, g[:4000]) for n, g in genome20k]
+    jg, tg = (jbuilder.Genome.from_contigs(contigs),
+              tbuilder.Genome.from_contigs(contigs))
+    ji, ti = jfm.build_fm_index(jg, jc), tfm.build_fm_index(tg, tc)
+    same(ji, ti, "fm index")
+    same(jfm.build_bs_fm_index(jg, jc), tfm.build_bs_fm_index(tg, tc),
+         "bs fm pair")
+    same(ji.n, ti.n, "n")
+    for i in (0, 1, 31, 32, 33, ti.n - 1, ti.n):
+        for sym in range(6):
+            same(ji.rank(sym, i), ti.rank(sym, i), f"rank {sym} {i}")
+    for k in rng.integers(0, 4 ** 7, 60):
+        same(ji.lookup(int(k)), ti.lookup(int(k)), f"lookup {k}")
+        kc = rng.integers(0, 4, 5)
+        same(ji.search_range(kc), ti.search_range(kc), "search_range")
+    for writer, reader in ((jfm, tfm), (tfm, jfm)):
+        p = str(tmp_path / f"{writer.__name__}.npz")
+        writer.save(p, ji if writer is jfm else ti)
+        same(ti if reader is tfm else ji, reader.load(p), "save / load")
 
 
 @pytest.mark.parametrize("reader", ["native", "python", "adaptor"])

@@ -27,7 +27,8 @@ import chip_smoke
 for want in ("config", "core.packing", "core.pwm", "align.scoring",
              "native.lib", "index.builder", "index.store", "io.fastq",
              "io.sam", "io.sgr", "oracle.oracle", "posterior.snp",
-             "utils.sim", "pipeline.mapper", "cli.main"):
+             "utils.sim", "pipeline.mapper", "cli.main", "index.fm",
+             "dist.segments"):
     assert "gnumap_tpu_torch." + want in names, want
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "gnumap_tpu", "bench"))

@@ -6,8 +6,10 @@ finish_impl="host")).  The CPU runs the plain torch versions of the
 kernels; no test here needs a card.  The port takes its own classes: the
 JAX package's values are rebuilt from their fields (test_torch_bridge.to_port)."""
 
+import contextlib
 import hashlib
 import io
+import json
 import os
 
 import numpy as np
@@ -141,8 +143,6 @@ def test_cuda_without_card_raises(tcfg, tphix):
 
 @pytest.mark.parametrize("flags", [["--num-hosts", "2"], ["-c", "2"],
                                    ["--index-shards", "2"],
-                                   ["--segments", "2"],
-                                   ["--index-type", "fm"], ["-b"],
                                    ["--accumulate", "device"]])
 def test_cli_unported_flags_raise(flags, tmp_path):
     """Flags of paths not yet ported raise before any output is written.
@@ -165,12 +165,88 @@ def test_cli_unported_flags_raise(flags, tmp_path):
     assert not os.path.exists(tmp_path / "x.sam")
 
 
+def _two_contig_fasta(phix_genome, path):
+    from gnumap_tpu.utils import sim as jsim
+    jsim.write_fasta(str(path), [("phiX_a", phix_genome[:2700]),
+                                 ("phiX_b", phix_genome[2700:])])
+    return str(path)
+
+
+def _cli_outputs(main, argv, out):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(argv + ["-o", str(out)]) == 0
+    done = json.loads(buf.getvalue().splitlines()[-1])
+    with open(f"{out}.sam") as f:
+        body = "".join(x for x in f if not x.startswith("@PG"))
+    with open(f"{out}.sgr", "rb") as f:
+        return body, f.read(), done
+
+
+@pytest.mark.parametrize("flags", [["-b"], ["--index-type", "fm"],
+                                   ["--segments", "2"],
+                                   ["-b", "--index-type", "fm"]])
+def test_cli_ported_flags_equal_jax(flags, phix_genome, tmp_path):
+    """-b, --index-type fm and --segments 2 run on the CPU and write the
+    JAX CLI's SAM body and SGR bytes for the same command (phiX split into
+    two contigs, so --segments 2 makes two segments)."""
+    from gnumap_tpu.cli import main as jcli
+    argv = ["-g", _two_contig_fasta(phix_genome, tmp_path / "g.fa"),
+            "-m", "8", "-j", "4", "-B", "128", "-L", "40", *flags,
+            os.path.join(ROOT, "testdata", "phix_sim_200.fastq")]
+    got = _cli_outputs(tcli.main, argv + ["--device", "cpu"],
+                       tmp_path / "port")
+    want = _cli_outputs(jcli.main, argv, tmp_path / "jax")
+    assert got[:2] == want[:2]
+    assert got[2]["segments"] == want[2]["segments"] == (
+        2 if "--segments" in flags else 1)
+    assert got[2]["mapped"] == want[2]["mapped"] > 100
+
+
+@pytest.mark.parametrize("case", ["segments_npz", "segments_fm",
+                                  "save_index_segmented"])
+def test_cli_refusals_follow_jax(case, phix_genome, tmp_path):
+    """The JAX CLI's refusals around the ported flags, with its messages:
+    --segments with an .npz genome, --segments with --index-type fm,
+    --save-index of a segmented genome."""
+    from gnumap_tpu.cli import main as jcli
+    fa = _two_contig_fasta(phix_genome, tmp_path / "g.fa")
+    npz = str(tmp_path / "idx.npz")
+    tcli.main(["-g", fa, "-m", "8", "-L", "40", "--save-index", npz])
+    genome, extra = {"segments_npz": (npz, ["--segments", "2"]),
+                     "segments_fm": (fa, ["--segments", "2",
+                                          "--index-type", "fm"]),
+                     "save_index_segmented": (
+                         fa, ["--segments", "2", "--save-index",
+                              str(tmp_path / "s.npz")])}[case]
+    argv = ["-g", genome, "-o", str(tmp_path / "x"), "-m", "8", "-L", "40",
+            *extra, os.path.join(ROOT, "testdata", "phix_sim_200.fastq")]
+    msgs = []
+    for main, dev in ((tcli.main, ["--device", "cpu"]), (jcli.main, [])):
+        with pytest.raises(SystemExit) as e:
+            main(argv + dev)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] and len(msgs[0]) > 20
+    assert not os.path.exists(tmp_path / "x.sam")
+
+
 def test_mapper_unported_configs_raise(phix_genome):
+    # bisulfite mode (BsIndexPair) is ported: it maps, with the reference's
+    # hits
     gen = builder.Genome.from_contigs([("phiX_sim", phix_genome)])
-    cfg_bs = MapperConfig(mer_size=8, max_read_len=40, bisulfite=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tm.TorchMapper(*to_port((gen, builder.build_bs_index(gen, cfg_bs),
-                                 cfg_bs)), device="cpu")
+    cfg_bs = MapperConfig(mer_size=8, max_read_len=40, bisulfite=True,
+                          batch_size=16)
+    idx_bs = builder.build_bs_index(gen, cfg_bs)
+    reads_bs = sim.simulate_reads(phix_genome, 16, 36, seed=3,
+                                  sub_rate=0.02, contig="phiX_sim",
+                                  bisulfite=True)
+    batch_bs = next(io_fastq.batch_reads(
+        iter(records_from_sim(reads_bs, cfg_bs)), cfg_bs))
+    got_bs = tm.TorchMapper(*to_port((gen, idx_bs, cfg_bs)),
+                            device="cpu").map_batch(to_port(batch_bs))
+    assert _hits(got_bs) == _hits(jm.TpuMapper(gen, idx_bs, cfg_bs)
+                                  .map_batch(batch_bs))
+    assert sum(map(bool, got_bs)) >= 12
     # unbanded scoring (gap_slack >= 14) is ported: it maps, and its device
     # finish gives the host finish's hits
     cfg_wide = MapperConfig(mer_size=8, max_read_len=40, gap_slack=16,
