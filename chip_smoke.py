@@ -97,7 +97,25 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              TorchMapper on the whole genome, SAM on: equal SAM and coverage;
              then the CLI's --segments 2 against no segments on the map
              phase's genome split in two contigs
-The three last print reads/s, the card's kernel and copy time of a warm
+  map_dist   the reads x index mesh and the multi-host CLI on the card, at
+             the map phase's data: (a) a world of one rank on NCCL, mesh
+             (1, 1): DistMapper with the device finish through map_stream,
+             SAM and SGR equal TorchMapper's; (b) two ranks sharing the card
+             over gloo (tensors staged through host memory), meshes (2, 1)
+             and (1, 2) with the device finish and (1, 2) with the host
+             finish: every rank's hits equal TorchMapper's, B1, B2 and B3
+             launched on every rank, B1 at C = 16 (rank 0's first call on
+             (1, 2)) vs plain, time, bound; (c) the CLI on two ranks:
+             --num-hosts 2 --snp, --segments 2 --num-hosts 2 (the genome in
+             two contigs) and -c 2 --num-hosts 2, each byte-equal to its
+             single-process run.  Each rank is a process of its own with a
+             deadline (python3 chip_smoke.py --dist-worker SPEC for (a) and
+             (b), the CLI for (c)); each mesh runs cold, then warm (NCCL
+             sets a group up at its first collective); per world: reads/s,
+             seconds and bytes a batch in the collectives and staged, peak
+             device memory per rank.  Two ranks on one card are not a
+             scaling figure.
+map_bs, map_fm and map_seg print reads/s, the card's kernel and copy time of a warm
 repeat under torch.profiler (its wall, and so the idle share beside it,
 includes the profiler's own cost) and the peak device memory of their main
 run beside what earlier phases still held when it started.
@@ -118,6 +136,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -131,7 +150,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernel_b1", "kernel_b2", "kernel_b3",
           "kernel_b4", "kernel_b5", "map", "map_host", "map_indel", "parity",
-          "map_unbanded", "map_acc", "map_bs", "map_fm", "map_seg")
+          "map_unbanded", "map_acc", "map_bs", "map_fm", "map_seg",
+          "map_dist")
 GENOME_LEN = 4_641_652
 N_READS = 16_384
 READ_LEN = 100
@@ -163,6 +183,9 @@ PATHS = {"map": (("nw_band", "nw_pure", "nw_tb"), ("nw_full", "accum")),
          "map_seg": (("nw_band", "nw_pure", "nw_tb"), ("nw_full", "accum"))}
 # launches a path makes exactly: B2 once a batch on map (2 batches); B5 once
 # a batch on map_acc, coverage and tallies in one launch
+# the kernels every rank of a map_dist world must launch (the host finish
+# launches B1 only)
+DIST_KERNELS = ("nw_band", "nw_pure", "nw_tb")
 PATH_LAUNCHES = {"map": {"nw_pure": 2}, "map_acc": {"accum": 2},
                  "map_bs": {"nw_pure": 2}, "map_fm": {"nw_pure": 2},
                  "map_seg": {"nw_pure": 4}}
@@ -1800,10 +1823,275 @@ def map_seg(tmp, fq, genome_str, pl, wrappers):
     return out, failures, launches, spies
 
 
+def cli_config(fa, fq):
+    """The map phase's MapperConfig, as the CLI builds it from CLI_ARGS."""
+    from gnumap_tpu_torch.cli import main as cli
+    return cli.config_from_args(cli.build_arg_parser().parse_args(
+        ["-g", fa, "-o", "unused", *CLI_ARGS, fq]))
+
+
+def _hit_fields(out):
+    return [[(h.strand, h.pos, h.score, h.cigar, h.ref_len, h.weight)
+             for h in hits] for hits in out]
+
+
+def dist_worker(spec_path: str) -> int:
+    """One rank of a map_dist world (python3 chip_smoke.py --dist-worker
+    SPEC): joins the world through multihost.initialize (NCCL when each rank
+    has a card of its own, else gloo), maps the map phase's reads through
+    DistMapper on the meshes the spec names and TorchMapper on the same
+    card, twice each (cold, then warm), and writes what it saw to the
+    spec's "out" file."""
+    import torch
+    from gnumap_tpu_torch.align import nw_band, nw_pure, nw_tb
+    from gnumap_tpu_torch.cli import main as cli
+    from gnumap_tpu_torch.dist import collectives, mesh as mesh_mod
+    from gnumap_tpu_torch.dist import multihost
+    from gnumap_tpu_torch.index import builder
+    from gnumap_tpu_torch.io import sgr as sgr_io
+    from gnumap_tpu_torch.pipeline import mapper as pl
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = spec["rank"]
+    backend = multihost.initialize(spec["coordinator"], spec["world"], rank,
+                                   device="cuda")
+    cfg = cli_config(spec["fa"], spec["fq"])
+    gen = builder.Genome.from_fasta(spec["fa"])
+    idx = builder.build_index(gen, cfg)
+    batches = list(cli.batch_stream([spec["fq"]], cfg))
+    mods = {"nw_band": nw_band, "nw_pure": nw_pure, "nw_tb": nw_tb}
+
+    def sgr(res):
+        buf = io.StringIO()
+        sgr_io.write_sgr(buf, gen, res.coverage, cfg.min_coverage_emit)
+        return buf.getvalue()
+
+    ref = pl.TorchMapper(gen, idx, cfg, device="cuda")
+    ref_res = pl.map_stream(ref, iter(batches))
+    want = [_hit_fields(ref.map_batch(b)) for b in batches]
+    del ref
+    torch.cuda.empty_cache()
+    out = dict(rank=rank, backend=backend, device=str(torch.cuda.current_device()),
+               runs=[])
+    # (run, spy): B1 is held to its plain version once every mesh has run,
+    # so that no rank waits for the check inside a timed pass
+    checks = []
+    for R, S, finish in spec["meshes"]:
+        mesh = mesh_mod.make_mesh(R, S, device="cuda")
+        dm = collectives.DistMapper(gen, idx, cfg, mesh, finish_impl=finish)
+        run = dict(mesh=[R, S], finish=finish, coords=list(mesh.coords),
+                   batches=len(batches))
+        # the cold pass pays for lazy set-up (NCCL creates a communicator
+        # at a group's first collective); the warm pass repeats it as is
+        for phase in ("cold", "warm"):
+            spy = (Spy(nw_band, "nw_scores_banded")
+                   if phase == "cold" and rank == 0 and S == 2
+                   and finish == "device" else None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            for m in mods.values():
+                m.LAUNCHES = 0
+            mesh_mod.COMM.reset()
+            with spy or contextlib.nullcontext():
+                t0 = time.perf_counter()
+                if spec["stream"]:
+                    res = pl.map_stream(dm, iter(batches))
+                    got = None
+                else:
+                    got = [_hit_fields(dm.map_batch(b)) for b in batches]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = {n: m.LAUNCHES for n, m in mods.items()}
+            comm = dataclasses.asdict(mesh_mod.COMM)
+            nb = len(batches)
+            rec = dict(wall_s=wall, reads_per_s=N_READS / wall,
+                       launches=launches,
+                       collective_s_per_batch=comm["seconds"] / nb,
+                       collective_bytes_per_batch=comm["bytes"] / nb,
+                       staged_bytes_per_batch=comm["staged_bytes"] / nb,
+                       collective_calls=comm["calls"],
+                       peak_device_bytes=torch.cuda.max_memory_allocated(),
+                       held_before_bytes=held)
+            if spec["stream"]:
+                rec["sam_equal"] = res.sam_lines == ref_res.sam_lines
+                rec["sgr_equal"] = sgr(res) == sgr(ref_res)
+                rec["equal"] = rec["sam_equal"] and rec["sgr_equal"]
+            else:
+                rec["equal"] = got == want
+            run[phase] = rec
+            if spy is not None:
+                checks.append((run, spy))
+        out["runs"].append(run)
+        del dm
+        torch.cuda.empty_cache()
+    for run, spy in checks:
+        run["nw_band_c16"] = main_path_check(
+            "nw_band", spy, nw_band.nw_scores_banded_plain)
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    multihost.barrier("map_dist_done")
+    multihost.shutdown()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(tmp, name, cmds, timeout):
+    """Start one process a rank (cmds[r] the argv of rank r), each with
+    stdout and stderr in files, and wait for all until the deadline; past
+    it, or when a rank fails, every rank still running is killed.  Returns
+    (ok, [stdout text of each rank]); a failed rank's stderr is printed."""
+    procs, logs = [], []
+    for r, cmd in enumerate(cmds):
+        o = open(os.path.join(tmp, f"{name}.r{r}.out"), "w+")
+        e = open(os.path.join(tmp, f"{name}.r{r}.err"), "w+")
+        logs.append((o, e))
+        procs.append(subprocess.Popen(cmd, cwd=ROOT, stdout=o, stderr=e))
+    deadline = time.monotonic() + timeout
+    ok = True
+    try:
+        while any(p.poll() is None for p in procs):
+            if (time.monotonic() > deadline
+                    or any(p.poll() not in (None, 0) for p in procs)):
+                ok = False
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outs = []
+    for r, (p, (o, e)) in enumerate(zip(procs, logs)):
+        o.seek(0)
+        e.seek(0)
+        outs.append(o.read())
+        err = e.read()
+        o.close()
+        e.close()
+        if p.returncode != 0:
+            ok = False
+            print(f"map_dist {name} rank {r}: exit {p.returncode}\n"
+                  f"{err[-4000:]}", file=sys.stderr)
+    return ok, outs
+
+
+def map_dist(tmp, fa, fq, genome_str):
+    """The reads x index mesh and the multi-host CLI on the card (see the
+    module docstring).  Returns (result, failures, the B1 check at C = 16
+    or None)."""
+    import torch
+    from gnumap_tpu_torch.utils import sim
+    failures = []
+    held = torch.cuda.memory_allocated()
+    worlds = {}
+    b1 = None
+    for name, world, meshes, stream in (
+            ("world1_nccl", 1, [[1, 1, "device"]], True),
+            ("world2_gloo", 2, [[2, 1, "device"], [1, 2, "device"],
+                                [1, 2, "host"]], False)):
+        coord = f"localhost:{_free_port()}"
+        cmds = []
+        for r in range(world):
+            spec = dict(rank=r, world=world, coordinator=coord, fa=fa,
+                        fq=fq, meshes=meshes, stream=stream,
+                        out=os.path.join(tmp, f"{name}.r{r}.json"))
+            sp = os.path.join(tmp, f"{name}.r{r}.spec")
+            with open(sp, "w") as f:
+                json.dump(spec, f)
+            cmds.append([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                         "--dist-worker", sp])
+        t0 = time.perf_counter()
+        ok, _ = run_ranks(tmp, name, cmds, 300)
+        if not ok:
+            failures.append(f"map_dist {name}: a rank failed or timed out")
+            continue
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"{name}.r{r}.json")) as f:
+                ranks.append(json.load(f))
+        worlds[name] = dict(seconds=time.perf_counter() - t0, ranks=ranks)
+        want_backend = "nccl" if world == 1 else "gloo"
+        for rk in ranks:
+            if rk["backend"] != want_backend:
+                failures.append(f"map_dist {name} rank {rk['rank']}: "
+                                f"backend {rk['backend']}")
+            for run in rk["runs"]:
+                need = (DIST_KERNELS if run["finish"] == "device"
+                        else ("nw_band",))
+                for phase in ("cold", "warm"):
+                    what = (f"map_dist {name} rank {rk['rank']} mesh "
+                            f"{run['mesh']} {run['finish']} {phase}")
+                    if not run[phase]["equal"]:
+                        failures.append(f"{what}: differs from TorchMapper")
+                    for k in need:
+                        if run[phase]["launches"][k] <= 0:
+                            failures.append(f"{what}: {k} never launched")
+                if "nw_band_c16" in run:
+                    b1 = run["nw_band_c16"]
+    if b1 is None:
+        failures.append("map_dist: no B1 check at C = 16")
+    # (c) the CLI on two ranks against the single-process CLI
+    half = len(genome_str) // 2
+    fa2 = os.path.join(tmp, "genome2.fa")
+    sim.write_fasta(fa2, [("ref_a", genome_str[:half]),
+                          ("ref_b", genome_str[half:])])
+    cli = {}
+    # (name, genome, flags of both runs, flags of the two-rank run only,
+    # files compared beside the SAM body)
+    for run, g, both, extra, exts in (
+            ("hosts2_snp", fa, ["--snp"], [], ("sgr", "sgrex")),
+            ("segments2_hosts2", fa2, ["--segments", "2"], [], ("sgr",)),
+            ("c2_hosts2", fa, [], ["-c", "2"], ("sgr",))):
+        single = os.path.join(tmp, f"dist_{run}_single")
+        multi = os.path.join(tmp, f"dist_{run}_multi")
+        base = ["-g", g, *CLI_ARGS, "--device", "cuda", *both, fq]
+        d1 = run_cli(base + ["-o", single])
+        coord = f"localhost:{_free_port()}"
+        cmds = [[sys.executable, "-m", "gnumap_tpu_torch.cli.main", *base,
+                 "-o", multi, *extra, "--num-hosts", "2", "--host-id",
+                 str(h), "--coordinator", coord] for h in range(2)]
+        t0 = time.perf_counter()
+        ok, outs = run_ranks(tmp, f"cli_{run}", cmds, 300)
+        secs = time.perf_counter() - t0
+        if not ok:
+            failures.append(f"map_dist cli {run}: a rank failed or timed "
+                            "out")
+            continue
+        done = [json.loads([x for x in o.splitlines()
+                            if x.startswith("{")][-1]) for o in outs]
+        equal = sam_body(single + ".sam") == sam_body(multi + ".sam")
+        for ext in exts:
+            equal &= (file_bytes(f"{single}.{ext}")
+                      == file_bytes(f"{multi}.{ext}"))
+        shards_left = [f for f in os.listdir(tmp)
+                       if f.startswith(os.path.basename(multi) + ".sam.host")]
+        if not equal or shards_left:
+            failures.append(f"map_dist cli {run}: equal {equal} shards left "
+                            f"{shards_left}")
+        cli[run] = dict(
+            equal=equal, seconds=secs, single_reads_per_s=d1["reads_per_s"],
+            reads_per_s=[d["reads_per_s"] for d in done],
+            reads=[d["reads"] for d in done], segments=done[0]["segments"],
+            collectives=[d.get("collectives") for d in done])
+    res = dict(held_before_bytes=held, worlds=worlds, cli=cli,
+               note="two ranks on one card share it: not a scaling figure")
+    return res, failures, b1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated phases to run")
+    ap.add_argument("--dist-worker", default=None, metavar="SPEC",
+                    help="run one rank of a map_dist world (the phase starts "
+                         "these itself)")
     ap.add_argument("--sass-out", default=None,
                     help="write cuobjdump -sass of the kernels the build "
                          "phase counts (B1 and B2 at bw 42, B4 and B3 at W 144, "
@@ -1817,6 +2105,8 @@ def main(argv=None) -> int:
               "False)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if args.dist_worker:
+        return dist_worker(args.dist_worker)
     import numpy as np
     from gnumap_tpu_torch import _build
     from gnumap_tpu_torch.config import MapperConfig
@@ -2200,6 +2490,14 @@ def main(argv=None) -> int:
             emit("map_seg", **res)
             failures.extend(fails)
             path_done("map_seg", launches, spies)
+        if "map_dist" in only:
+            t0 = time.perf_counter()
+            res, fails, b1 = map_dist(tmp, fa, fq, genome_str)
+            emit("map_dist", seconds=time.perf_counter() - t0, **res)
+            failures.extend(fails)
+            if b1 is not None:
+                emit("map_dist_nw_band", **b1)
+                record("nw_band", b1, "nw_band at C = 16 on map_dist")
 
     if failures:
         raise RuntimeError("; ".join(failures))

@@ -14,13 +14,27 @@ is reached through the API, ``TorchMapper(..., finish_impl="host")``.
 ``-b`` maps bisulfite reads (the per-strand collapsed index pair),
 ``--index-type fm`` seeds from the FM index, and ``--segments N`` (or a
 genome past SEG_LIMIT) splits the genome into contig-aligned segments, one
-index and one device state each (dist/segments.py).  Flags of paths not yet
-ported (multi-host, read / index shards) raise NotImplementedError.
+index and one device state each (dist/segments.py).
+
+Multi-host runs start one process per rank with ``--num-hosts N --host-id h
+--coordinator host:port`` (rank 0's address; torch.distributed, NCCL when
+each rank has a card of its own, gloo otherwise):
+  * ``--num-hosts N`` alone: the JAX CLI's multi-host data-parallel mode
+    (host h maps its byte range of one FASTQ or every N-th batch, SAM
+    shards merged at host 0, coverage merged exactly), or with segments
+    the genome-partitioned mode (host h maps every batch against the
+    segments it owns);
+  * ``-c R --index-shards S``: the reads x index mesh (dist/collectives.py
+    DistMapper).  One difference from the JAX CLI, where one process drives
+    every device: a rank owns one device, so the mesh runs as R * S
+    processes started with ``--num-hosts R*S``; every rank reads every
+    batch and maps its mesh block, and host 0 alone writes the outputs.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import os
@@ -28,10 +42,11 @@ import sys
 import time
 
 from gnumap_tpu_torch.config import MapperConfig
+from gnumap_tpu_torch.dist import collectives, mesh as mesh_mod, multihost
 from gnumap_tpu_torch.dist.segments import SEG_LIMIT, GlobalSegmentedMapper
 from gnumap_tpu_torch.index import builder, fm, store
 from gnumap_tpu_torch.io import fastq as io_fastq, sam as sam_io, sgr as sgr_io
-from gnumap_tpu_torch.pipeline import mapper as pl
+from gnumap_tpu_torch.pipeline import checkpoint as ckpt, mapper as pl
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -96,9 +111,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--fail-after", type=int, default=0,
                    help="fault injection: crash after N batches")
     p.add_argument("-c", "--read-shards", type=int, default=0,
-                   help="data-parallel read shards (not yet ported)")
+                   help="data-parallel read shards of the reads x index "
+                        "mesh (0 = no mesh; ref -c threads / mpirun -np); "
+                        "a rank owns one device, so -c R --index-shards S "
+                        "runs as R*S processes started with --num-hosts "
+                        "R*S, and host 0 writes the outputs")
     p.add_argument("--index-shards", type=int, default=1,
-                   help="shard the k-mer index (not yet ported)")
+                   help="shard the k-mer index over this many ranks "
+                        "(genome-partitioned mode; with -c 0 the read "
+                        "shards are num-hosts / index-shards)")
     p.add_argument("--segments", default="auto",
                    help="position-partition the genome into N contig-"
                         "aligned segments ('auto': segments only past the "
@@ -106,7 +127,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--verbose", action="store_true",
                    help="per-batch JSONL stats on stderr (ref -v)")
     p.add_argument("--num-hosts", type=int, default=1,
-                   help="multi-host run (not yet ported)")
+                   help="multi-host run: total torch.distributed processes "
+                        "(the reference's mpirun -np R); one device each")
+    p.add_argument("--host-id", type=int, default=0,
+                   help="this process's rank in [0, num-hosts)")
+    p.add_argument("--coordinator", default="localhost:29500",
+                   help="rendezvous address host:port (rank 0's)")
     return p
 
 
@@ -173,23 +199,27 @@ def batch_stream(paths, cfg, adaptor=None):
 
 _ACC_REFUSAL = ("--accumulate device is the single-device TpuMapper path; "
                 "segmented and sharded runs use host accumulation")
+_FM_REFUSAL = ("--index-type fm is single-device; the sharded path shards "
+               "the CSR table (use --index-type csr)")
 
 
-def _not_yet_ported(args) -> None:
-    """Raise for every flag whose path the port does not have yet, after
-    the refusals the JAX CLI makes for the same flags."""
-    sharded = args.read_shards or args.index_shards > 1
-    if args.accumulate == "device" and sharded:
+def _check_sharding(args) -> bool:
+    """The refusals of the sharded flags, before any process group or
+    output exists; True when the run is sharded (a reads x index mesh)."""
+    sharded = bool(args.read_shards or args.index_shards > 1)
+    if not sharded:
+        return False
+    if args.accumulate == "device":
         raise SystemExit(_ACC_REFUSAL)
-    flags = []
-    if args.num_hosts > 1:
-        flags.append("--num-hosts > 1")
-    if sharded:
-        flags.append("--read-shards / --index-shards")
-    if flags:
-        raise NotImplementedError(
-            f"{', '.join(flags)}: not yet ported to gnumap_tpu_torch (use "
-            "gnumap_tpu.cli.main)")
+    if args.index_type == "fm":
+        raise SystemExit(_FM_REFUSAL)
+    R, S = args.read_shards, args.index_shards
+    if (R and R * S != args.num_hosts) or (not R and args.num_hosts % S):
+        raise SystemExit(
+            f"-c {R} --index-shards {S}: a rank owns one device, so the "
+            f"mesh runs as R*S processes started with --num-hosts R*S "
+            f"(got --num-hosts {args.num_hosts})")
+    return True
 
 
 def main(argv=None) -> int:
@@ -201,7 +231,14 @@ def main(argv=None) -> int:
     if not args.save_index and (not args.reads or not args.output):
         raise SystemExit("reads and -o/--output are required unless "
                          "--save-index is given")
-    _not_yet_ported(args)
+    sharded = _check_sharding(args)
+    multi = args.num_hosts > 1
+    if multi:
+        multihost.initialize(args.coordinator, args.num_hosts, args.host_id,
+                             device=args.device)
+        if args.checkpoint:
+            # per-host stream state; every host resumes its own partition
+            args.checkpoint = f"{args.checkpoint}.h{args.host_id}"
     cfg = config_from_args(args)
     n_segments = 0 if args.segments == "auto" else int(args.segments)
     t0 = time.perf_counter()
@@ -214,6 +251,8 @@ def main(argv=None) -> int:
         if n_segments > 1:
             raise SystemExit("--segments needs a FASTA genome (per-segment "
                              "indexes are built contig-aligned)")
+        if sharded and pl.index_kind(index).startswith("fm"):
+            raise SystemExit(_FM_REFUSAL)
     else:
         genome = builder.Genome.from_fasta(args.genome)
         segmented = n_segments > 1 or len(genome.codes) > SEG_LIMIT
@@ -242,18 +281,50 @@ def main(argv=None) -> int:
         raise SystemExit(_ACC_REFUSAL)
 
     t0 = time.perf_counter()
+    mesh = None
+    if sharded:
+        mesh = mesh_mod.make_mesh(args.read_shards or None,
+                                  args.index_shards, device=args.device)
     if index is None:
         # segmented path (genome > int32 or --segments N): per-segment
-        # int32 indexes, global int64 coordinates, union posteriors
+        # int32 indexes, global int64 coordinates, union posteriors.
+        # With --num-hosts R (and no mesh) this becomes the
+        # GENOME-PARTITIONED mode (the reference's RAM-bound MPI layout):
+        # host h owns segments h, h+R, ... and maps EVERY read batch
+        # against them; posterior denominators reduce across hosts per
+        # batch and the coverage tracks merge bit-exactly
+        # (dist/segments.py docstring).  On a mesh every rank maps every
+        # segment through its DistMapper.
+        gp_hosts = 1 if sharded else args.num_hosts
         m = GlobalSegmentedMapper(genome, cfg, device=args.device,
-                                  n_segments=n_segments)
+                                  n_segments=n_segments, mesh=mesh,
+                                  num_hosts=gp_hosts,
+                                  host_id=args.host_id if gp_hosts > 1
+                                  else 0)
+    elif sharded:
+        m = collectives.DistMapper(genome, index, cfg, mesh)
     else:
         m = pl.TorchMapper(genome, index, cfg, device=args.device,
                            accumulate=args.accumulate)
     t_index += time.perf_counter() - t0
+    # who writes what: on a mesh every rank maps every batch and host 0
+    # alone writes the outputs; otherwise a multi-host run writes per-host
+    # SAM shards that host 0 merges
+    shards = multi and not sharded
+    writer = args.host_id == 0 or shards
     sam_path = args.output + ".sam"
-    sam_f = None
-    if cfg.sam_out:
+    sam_f = sam_bin = None
+    spans: list = []
+    if cfg.sam_out and shards:
+        # per-host headerless SAM shard + per-batch byte spans (merged by
+        # global batch index at host 0 — the reference's rank-0 gather)
+        import io as _io
+        body_path, _ = multihost.shard_paths(args.output, args.host_id)
+        resuming = bool(args.checkpoint and os.path.exists(args.checkpoint)
+                        and os.path.exists(body_path))
+        sam_bin = open(body_path, "r+b" if resuming else "wb")
+        sam_f = _io.TextIOWrapper(sam_bin, encoding="ascii", newline="")
+    elif cfg.sam_out and writer:
         resuming = bool(args.checkpoint and os.path.exists(args.checkpoint))
         sam_f = open(sam_path, "r+" if resuming and
                      os.path.exists(sam_path) else "w+")
@@ -261,6 +332,7 @@ def main(argv=None) -> int:
             sam_f.seek(0)
             sam_io.write_header(sam_f, genome.names, genome.lengths,
                                 cmd=" ".join(sys.argv))
+    genome_partitioned = shards and index is None
     callbacks = []
     if args.verbose:
         def _vcb(idx, s):
@@ -273,6 +345,64 @@ def main(argv=None) -> int:
                 "device_s": round(s.device_s, 3),
                 "host_s": round(s.host_s, 3)}), file=sys.stderr)
         callbacks.append(_vcb)
+    _gp_rows: list = []
+    if sam_bin is not None and genome_partitioned:
+        # per-RECORD index rows (batch, read, key) aligned with the shard
+        # lines; host 0 interleaves them (multihost.merge_sam_shards_gp)
+        _, idx_path = multihost.shard_paths(args.output, args.host_id)
+        if args.checkpoint and os.path.exists(args.checkpoint):
+            st = ckpt.load(args.checkpoint)
+            if st is not None and os.path.exists(idx_path):
+                with open(idx_path) as f:
+                    for line in f.read().splitlines():
+                        row = tuple(json.loads(line))
+                        if row[0] < st.batches_done:
+                            _gp_rows.append(row)
+        if args.checkpoint:
+            # truncate to the kept rows once; per-batch writes APPEND
+            multihost.write_shard_index(idx_path, _gp_rows)
+
+        def _gp_cb(idx, s):
+            gp = getattr(m, "gp_sam", None)
+            new_rows = [(idx - 1, rd, key)
+                        for rd, key in (gp["records"] if gp else [])]
+            _gp_rows.extend(new_rows)
+            if args.checkpoint and new_rows:
+                sam_f.flush()
+                with open(idx_path, "a") as f:
+                    for row in new_rows:
+                        f.write(json.dumps(row) + "\n")
+                    f.flush()
+                    os.fsync(f.fileno())
+        callbacks.append(_gp_cb)
+    elif sam_bin is not None:
+        _prev = [0]
+        _k = [0]
+        _, idx_path = multihost.shard_paths(args.output, args.host_id)
+        if args.checkpoint and os.path.exists(args.checkpoint):
+            # resume: keep the spans of already-checkpointed batches
+            st = ckpt.load(args.checkpoint)
+            if st is not None and os.path.exists(idx_path):
+                with open(idx_path) as f:
+                    kept = f.read().splitlines()[:st.batches_done]
+                for line in kept:
+                    spans.append(tuple(json.loads(line)))
+                _k[0] = len(kept)
+                _prev[0] = st.sam_offset
+
+        def _span_cb(idx, s):
+            sam_f.flush()
+            end = sam_bin.tell()
+            if byte_range_mode:
+                key = (args.host_id, _k[0])      # host-contiguous reads
+            else:
+                key = (_k[0] * args.num_hosts + args.host_id, 0)  # strided
+            spans.append((key[0], key[1], _prev[0], end))
+            _prev[0] = end
+            _k[0] += 1
+            if args.checkpoint:
+                multihost.write_shard_index(idx_path, spans)
+        callbacks.append(_span_cb)
     if args.fail_after:
         def _fail_cb(idx, s):
             if idx >= args.fail_after:
@@ -285,7 +415,31 @@ def main(argv=None) -> int:
         def cb(idx, s):
             for c in callbacks:
                 c(idx, s)
-    batches = batch_stream(args.reads, cfg, args.adaptor)
+    # multi-host read partition: byte ranges for a plain single FASTQ
+    # (each host parses only ~1/R of the file); batch stride otherwise.
+    # Genome-partitioned mode and the mesh BROADCAST reads instead (every
+    # host maps every batch).
+    byte_range_mode = (
+        shards and not genome_partitioned and len(args.reads) == 1
+        and not args.reads[0].endswith(("_prb.txt", ".prb", "_int.txt",
+                                        ".int", ".fa", ".fasta", ".gz")))
+    if byte_range_mode:
+        lo, hi = multihost.fastq_ranges(args.reads[0],
+                                        args.num_hosts)[args.host_id]
+        from gnumap_tpu_torch.core import packing
+        ad = packing.encode(args.adaptor) if args.adaptor else None
+
+        def _range_batches():
+            for bb in io_fastq.batch_reads_native(args.reads[0], cfg,
+                                                  start=lo, stop=hi):
+                yield (io_fastq.trim_adaptor_batch(bb, ad)
+                       if ad is not None else bb)
+        batches = _range_batches()
+    else:
+        batches = batch_stream(args.reads, cfg, args.adaptor)
+        if shards and not genome_partitioned:
+            batches = multihost.strided(batches, args.num_hosts,
+                                        args.host_id)
     t1 = time.perf_counter()
     res = pl.map_stream(
         m, batches,
@@ -294,21 +448,50 @@ def main(argv=None) -> int:
         checkpoint_every=args.checkpoint_every,
         batch_callback=cb)
     t_map = time.perf_counter() - t1
-    if sam_f:
+    if shards:
+        # cross-host merge: coverage/tallies by deterministic bit-exact
+        # all-gather + host-ordered sum (the MPI_Reduce analog); SAM by
+        # rank-0 interleave of per-batch shard chunks
+        if res.coverage is not None:
+            res.coverage = multihost.allreduce_f64(res.coverage)
+        if res.tallies is not None:
+            res.tallies = multihost.allreduce_f64(res.tallies)
+        if sam_f:
+            sam_f.close()
+            _, idx_path = multihost.shard_paths(args.output, args.host_id)
+            multihost.write_shard_index(
+                idx_path, _gp_rows if genome_partitioned else spans)
+        multihost.barrier("gnumap_sam_shards")
+        if sam_f and args.host_id == 0:
+            import io as _io
+            hdr = _io.StringIO()
+            sam_io.write_header(hdr, genome.names, genome.lengths,
+                                cmd=" ".join(sys.argv))
+            if genome_partitioned:
+                multihost.merge_sam_shards_gp(args.output, args.num_hosts,
+                                              hdr.getvalue())
+            else:
+                multihost.merge_sam_shards(args.output, args.num_hosts,
+                                           hdr.getvalue())
+            if args.sort_sam:
+                sam_io.sort_sam_file(sam_path, genome.names)
+    elif sam_f:
         sam_f.close()
         if args.sort_sam:
             sam_io.sort_sam_file(sam_path, genome.names)
-    if cfg.sgr_out:
+    if cfg.sgr_out and args.host_id == 0:
         with open(args.output + ".sgr", "w") as f:
             sgr_io.write_sgr(f, genome, res.coverage, cfg.min_coverage_emit)
-    if cfg.sgrex_out and res.tallies is not None:
+    if cfg.sgrex_out and res.tallies is not None and args.host_id == 0:
         from gnumap_tpu_torch.posterior import snp
         pvals = snp.snp_pvalues(genome.codes, res.coverage, res.tallies)
         with open(args.output + ".sgrex", "w") as f:
             sgr_io.write_sgrex(f, genome, res.coverage, res.tallies, pvals,
                                cfg.min_coverage_emit)
+    if multi:
+        multihost.barrier("gnumap_outputs")
     s = res.stats
-    print(json.dumps({
+    done = {
         "event": "done", "device": str(m.device), "reads": s.n_reads,
         "mapped": s.n_mapped, "segments": getattr(m, "n_segments", 1),
         "multi_mapped": s.n_multi, "candidates": s.n_candidates,
@@ -316,7 +499,11 @@ def main(argv=None) -> int:
         "map_s": round(t_map, 3),
         "reads_per_s": round(s.n_reads / max(t_map, 1e-9), 1),
         "dp_cells_per_s": round(s.dp_cells / max(t_map, 1e-9), 1),
-        "device_s": round(s.device_s, 3), "host_s": round(s.host_s, 3)}))
+        "device_s": round(s.device_s, 3), "host_s": round(s.host_s, 3)}
+    if multi or sharded:
+        done["collectives"] = dataclasses.asdict(mesh_mod.COMM)
+    print(json.dumps(done))
+    multihost.shutdown()
     return 0
 
 

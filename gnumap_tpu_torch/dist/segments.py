@@ -9,10 +9,9 @@ maps against every segment; the retained hits are then merged per read and
 the posterior weights renormalized over the union: w_i = s_i / sum over ALL
 segments' retained loci — the same frozen semantics as a single unsegmented
 genome, because retention thresholds depend only on the read, never on the
-genome.
-
-Not yet ported (raise): the genome-partitioned multi-host mode
-(``num_hosts`` > 1) and a device mesh per segment (``mesh``).
+genome.  A segment's mapper may be a DistMapper on a reads x index mesh
+(``mesh=``), and with ``num_hosts`` > 1 each host maps only the segments it
+owns (the genome-partitioned multi-host mode, GlobalSegmentedMapper).
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ import dataclasses
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from gnumap_tpu_torch.config import MapperConfig
 from gnumap_tpu_torch.index import builder
@@ -171,7 +171,24 @@ class GlobalSegmentedMapper:
     unchanged.  ``submit`` enqueues every segment's device program before
     any ``finish`` waits, so map_stream's depth-3 pipeline still overlaps
     the device with the host.  Segment codes are VIEWS of the global codes
-    array (no copies)."""
+    array (no copies); each segment's mapper may itself be a sharded
+    DistMapper (``mesh=``, on the mesh rank's device), composing genome
+    partitioning with the reads x index mesh.
+
+    **Genome-partitioned multi-host mode** (``num_hosts`` > 1, the
+    reference's RAM-bound MPI layout — SURVEY.md §3.5: genome partitioned
+    across ranks, reads broadcast): host h builds mappers ONLY for the
+    segments it owns (round-robin ``s % num_hosts == host_id``) and maps
+    EVERY read batch against them.  Posterior weights stay globally exact:
+    per batch, each host's per-read retained-score sums allreduce
+    (dist.multihost.allreduce_f64 — exact, the scores are integers far
+    below 2^53) and every host normalizes its local hits by the GLOBAL
+    total, so coverage contributions are bit-identical to the
+    single-process segmented run; the final cross-host coverage reduce
+    (each genome position is owned by exactly one host, peers contribute
+    exact zeros) reproduces it byte for byte.  Every host makes the same
+    collectives the same number of times a batch, a host that owns no
+    segment (num_hosts > segments) included."""
 
     accumulate = "host"
 
@@ -179,23 +196,29 @@ class GlobalSegmentedMapper:
                  device="cuda", max_bases: int = SEG_LIMIT,
                  n_segments: int = 0, mesh=None, finish_impl=None,
                  num_hosts: int = 1, host_id: int = 0):
-        if num_hosts > 1:
-            raise NotImplementedError(
-                "genome-partitioned multi-host segments (num_hosts > 1): "
-                "not yet ported to gnumap_tpu_torch")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh per segment (mesh=): not yet ported to "
-                "gnumap_tpu_torch")
+        if not 0 <= host_id < num_hosts:
+            raise ValueError(f"host_id {host_id} not in [0, {num_hosts})")
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if num_hosts > 1 and world != num_hosts:
+            raise ValueError(f"num_hosts {num_hosts} needs an initialised "
+                             f"process group of {num_hosts} ranks "
+                             f"(dist/multihost.initialize); the world has "
+                             f"{world}")
         self.genome = genome
         self.cfg = cfg
-        self.device = pl._require_device(device)
+        self.num_hosts = num_hosts
+        self.host_id = host_id
+        self.device = (mesh.device if mesh is not None
+                       else pl._require_device(device))
         self.bounds = segment_bounds(genome, max_bases, n_segments)
         total = len(genome.codes)
         ends = np.concatenate([genome.starts[1:], [total]]).astype(np.int64)
-        self.mappers: List[pl.TorchMapper] = []
+        self.mappers = []
         self.bases: List[int] = []
-        for ci_lo, ci_hi in self.bounds:
+        self.owned: List[int] = []
+        for si, (ci_lo, ci_hi) in enumerate(self.bounds):
+            if si % num_hosts != host_id:
+                continue
             lo = int(genome.starts[ci_lo])
             hi = int(ends[ci_hi - 1])
             sub = builder.Genome(
@@ -203,30 +226,97 @@ class GlobalSegmentedMapper:
                 names=list(genome.names[ci_lo:ci_hi]),
                 starts=genome.starts[ci_lo:ci_hi] - lo,
                 lengths=genome.lengths[ci_lo:ci_hi])
-            self.mappers.append(pl.TorchMapper(
-                sub, _segment_index(sub, cfg), cfg, device=self.device,
-                finish_impl=finish_impl))
+            if mesh is not None:
+                from gnumap_tpu_torch.dist.collectives import DistMapper
+                m = DistMapper(sub, _segment_index(sub, cfg), cfg, mesh,
+                               finish_impl=finish_impl)
+            else:
+                m = pl.TorchMapper(sub, _segment_index(sub, cfg), cfg,
+                                   device=self.device,
+                                   finish_impl=finish_impl)
+            self.mappers.append(m)
             self.bases.append(lo)
+            self.owned.append(si)
 
     @property
     def n_segments(self) -> int:
-        """Total segments in the partition."""
+        """Total segments in the partition (across all hosts)."""
         return len(self.bounds)
 
     # -- TorchMapper-compatible surface (map_stream pipelines through it) --
     def submit(self, batch: ReadBatch):
+        if not self.mappers or not hasattr(self.mappers[0], "submit"):
+            return None                       # DistMapper: sync map_batch
         return [m.submit(batch) for m in self.mappers]
 
     def finish(self, batch: ReadBatch, futs,
                stats: "pl.BatchStats | None" = None):
         seg_stats = pl.BatchStats()
-        per = [m.finish(batch, f, seg_stats)
-               for m, f in zip(self.mappers, futs)]
-        out = self._merge_global(per, n=batch.n)
+        if futs is None:
+            per = [m.map_batch(batch, seg_stats) for m in self.mappers]
+        else:
+            per = [m.finish(batch, f, seg_stats)
+                   for m, f in zip(self.mappers, futs)]
+        totals = None
+        g_mapped = g_multi = None
+        if self.num_hosts > 1:
+            # global per-read posterior denominators: exact f64 sums of
+            # integer scores, reduced across hosts (see class docstring).
+            # Per-read hit counts ride in the same allreduce so each
+            # host's n_mapped/n_multi report GLOBAL reality, not just its
+            # own segments' hits.  Counts need no cross-host dedupe:
+            # segments partition the coordinate space, so no two hosts can
+            # hold the same (pos, strand) hit.  A third reduce (min)
+            # carries each read's smallest global (pos, strand) key,
+            # deciding which host owns the PRIMARY SAM record — the
+            # single-host rule "first hit in merged order" made global.
+            # Keys are exact in f64 (2*pos + strand << 2^53).
+            from gnumap_tpu_torch.dist import multihost
+            BIGK = float(1 << 62)
+            sam = self.cfg.sam_out
+            loc = np.zeros((2, batch.n), np.float64)
+            mk = np.full(batch.n, BIGK, np.float64)
+            for base, seg_hits in zip(self.bases, per):
+                for b, hits in enumerate(seg_hits):
+                    for h in hits:
+                        loc[0, b] += h.score
+                        loc[1, b] += 1.0
+                        if sam:
+                            key = float(2 * (base + h.pos)
+                                        + (h.strand == "-"))
+                            if key < mk[b]:
+                                mk[b] = key
+            red = multihost.allreduce_f64(loc)
+            # the min-key reduce decides SAM primary flags; skip it (and
+            # the per-hit record assembly below) on coverage-only runs
+            minkey = (multihost.allreduce_f64(mk, op="min") if sam
+                      else None)
+            totals = red[0]
+            g_mapped = int((red[1] >= 1.0).sum())
+            g_multi = int((red[1] >= 2.0).sum())
+        out = self._merge_global(per, totals=totals, n=batch.n)
+        if self.num_hosts > 1 and self.cfg.sam_out:
+            # explicit primacy + the per-batch SAM metadata map_stream and
+            # the CLI's genome-partitioned record merge consume (gp_sam is
+            # re-set every batch; records are (read, key) in this host's
+            # emission order; key -1 = the unmapped record host 0 emits
+            # for globally-unmapped reads)
+            mapped_g = red[1] >= 1.0
+            recs: List[Tuple[int, int]] = []
+            for b, hits in enumerate(out):
+                for h in hits:
+                    k = 2 * h.pos + (h.strand == "-")
+                    h.primary = (k == int(minkey[b]))
+                    recs.append((b, k))
+                if not hits and not mapped_g[b] and self.host_id == 0:
+                    recs.append((b, -1))
+            self.gp_sam = {"mapped": mapped_g, "records": recs}
         if stats is not None:
             stats.n_reads += batch.n
-            stats.n_mapped += sum(1 for hh in out if hh)
-            stats.n_multi += sum(1 for hh in out if len(hh) > 1)
+            stats.n_mapped += (g_mapped if g_mapped is not None
+                               else sum(1 for hh in out if hh))
+            stats.n_multi += (g_multi if g_multi is not None
+                              else sum(1 for hh in out if len(hh) > 1))
             stats.n_candidates += seg_stats.n_candidates
             stats.dp_cells += seg_stats.dp_cells
             stats.dp_cells_banded += seg_stats.dp_cells_banded
@@ -238,11 +328,13 @@ class GlobalSegmentedMapper:
                   stats: "pl.BatchStats | None" = None):
         return self.finish(batch, self.submit(batch), stats)
 
-    def _merge_global(self, per_segment,
+    def _merge_global(self, per_segment, totals=None,
                       n: "int | None" = None) -> List[List[pl.ReadHit]]:
-        """Union per-read hits across segments in GLOBAL coordinates and
-        renormalize weights over the union (frozen posterior semantics:
-        w_i = s_i / sum over ALL retained loci)."""
+        """Union per-read hits across (locally owned) segments in GLOBAL
+        coordinates and renormalize weights over the union (frozen
+        posterior semantics: w_i = s_i / sum over ALL retained loci).
+        ``totals`` carries the cross-host global denominators in
+        genome-partitioned multi-host mode."""
         if n is None:
             n = len(per_segment[0])
         out: List[List[pl.ReadHit]] = []
@@ -252,7 +344,8 @@ class GlobalSegmentedMapper:
                 for h in seg_hits[b]:
                     hits.append(pl.ReadHit(h.strand, base + h.pos, h.score,
                                            0.0, h.cigar, h.ref_len))
-            total = float(sum(h.score for h in hits))
+            total = (float(totals[b]) if totals is not None
+                     else float(sum(h.score for h in hits)))
             for h in hits:
                 h.weight = h.score / total if total else 0.0
             hits.sort(key=lambda h: (h.pos, 0 if h.strand == "+" else 1))

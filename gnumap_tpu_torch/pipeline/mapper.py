@@ -34,8 +34,10 @@ FM, the bisulfite FM pair):
     * coverage / SNP-tally scatter, SAM records
 
 Genome segments (genomes past the int32 limit, ``--segments``) run one
-TorchMapper a segment: dist/segments.py.  Not yet ported (raise): the
-multi-host and sharded paths.
+TorchMapper a segment: dist/segments.py.  The reads x index mesh runs the
+same device program a rank per mesh position: dist/collectives.py
+(DistMapper, which map_stream drives through map_batch); the multi-host
+layer is dist/multihost.py.
 """
 
 from __future__ import annotations
@@ -628,6 +630,52 @@ def decode_tb_blob(cfg: MapperConfig, B: int, n: int, lens_np, blob):
     return out, n_keep, n_valid
 
 
+def seed_csr(cfg: MapperConfig, st, codes2, lookup):
+    """Candidate anchors (B2, S, caph) from the CSR table or the bisulfite
+    CSR pair in device_state ``st``: k-mer codes at the seed offsets, then
+    ``lookup(km, bad, sfx)``, the hits in the strand's table (sfx "" or
+    "_minus").  Bisulfite [FROZEN]: plus rows seed C->T-collapsed against
+    the C->T genome index, minus (revcomp) rows G->A (GNUMAP-bs —
+    conversion never breaks a seed); base-3 k-mer codes."""
+    off, m = st["offsets"], cfg.mer_size
+    if "digits_ct" in st:
+        B = codes2.shape[0] // 2
+        kmp, badp = seed_kmers_b3(codes2[:B], off, m, st["digits_ct"])
+        kmm, badm = seed_kmers_b3(codes2[B:], off, m, st["digits_ga"])
+        return torch.cat([lookup(kmp, badp, ""),
+                          lookup(kmm, badm, "_minus")], dim=0)
+    km, bad = seed_kmers(codes2, off, m)
+    return lookup(km, bad, "")
+
+
+def score_pairs(cfg: MapperConfig, emis2_t, cands, lens2, g_codes):
+    """Scores of every (read-strand, candidate) pair, int32[B2, C]: banded
+    (csrc/nw_band.cu), or unbanded when cfg.band() is None
+    (csrc/nw_full.cu); the plain versions on the CPU."""
+    kw = dict(L=cfg.max_read_len, W=cfg.window_width(), slack=cfg.gap_slack,
+              open_q=cfg.gap_open_q(), ext_q=cfg.gap_extend_q())
+    if cfg.band() is None:
+        return nw_full.nw_scores_full(emis2_t, cands, lens2, g_codes, **kw)
+    boff, bw = cfg.band()
+    return nw_band.nw_scores_banded(emis2_t, cands, lens2, g_codes,
+                                    boff=boff, bw=bw, **kw)
+
+
+def device_map(cfg: MapperConfig, st, codes, pwm_q, lens, seed, score):
+    """The map program up to the scores, on device_state ``st``: strand
+    expansion, max scores, ``seed(codes2)`` -> (cands, valid) and
+    ``score(emis2_t, cands, lens2)`` -> int32[B2, C].  Returns (cands,
+    valid, scores, max_sc, emis2_t, lens2), NEG_INF at invalid slots."""
+    codes2, emis2 = strand_expand(codes, pwm_q, lens, st["S_plus"],
+                                  st["S_minus"])
+    max_sc = nw_ref.max_read_scores(emis2)
+    cands, valid = seed(codes2)
+    lens2 = torch.cat([lens, lens], dim=0)
+    emis2_t = emis2.transpose(1, 2).contiguous()
+    scores = torch.where(valid, score(emis2_t, cands, lens2), NEG_INF)
+    return cands, valid, scores, max_sc, emis2_t, lens2
+
+
 def _require_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -704,19 +752,7 @@ class TorchMapper:
             return [st[k + sfx] for k in ("sa", "bwt_words", "occ",
                                           "c_table")]
 
-        if kind == "csr_bs":
-            # bisulfite [FROZEN]: plus rows seed C->T-collapsed against the
-            # C->T genome index, minus (revcomp) rows G->A (GNUMAP-bs —
-            # conversion never breaks a seed); base-3 k-mer codes
-            B = codes2.shape[0] // 2
-            kmp, badp = seed_kmers_b3(codes2[:B], off, m, st["digits_ct"])
-            kmm, badm = seed_kmers_b3(codes2[B:], off, m, st["digits_ga"])
-            cand = torch.cat([
-                csr_hits(kmp, badp, st["bucket_start"], st["positions"],
-                         off, cfg),
-                csr_hits(kmm, badm, st["bucket_start_minus"],
-                         st["positions_minus"], off, cfg)], dim=0)
-        elif kind == "fm_bs":
+        if kind == "fm_bs":
             # bisulfite on the FM backend: collapse the read halves, search
             # each in its collapsed FM index (base-4 codes suffice — no
             # dense bucket table to size)
@@ -728,13 +764,13 @@ class TorchMapper:
             cand = torch.cat([
                 fm_hits(kmp, badp, *fm_args(""), off, cfg),
                 fm_hits(kmm, badm, *fm_args("_minus"), off, cfg)], dim=0)
-        else:
+        elif kind == "fm":
             km, bad = seed_kmers(codes2, off, m)
-            if kind == "fm":
-                cand = fm_hits(km, bad, *fm_args(""), off, cfg)
-            else:
-                cand = csr_hits(km, bad, st["bucket_start"], st["positions"],
-                                off, cfg)
+            cand = fm_hits(km, bad, *fm_args(""), off, cfg)
+        else:
+            cand = seed_csr(cfg, st, codes2, lambda km, bad, sfx: csr_hits(
+                km, bad, st["bucket_start" + sfx], st["positions" + sfx],
+                off, cfg))
         cands = dedupe_cap(cand, cfg.max_candidates)
         return cands, cands != SENTINEL
 
@@ -743,26 +779,10 @@ class TorchMapper:
         scores, max_sc) plus the emission tables (int32[B2, 5, L],
         contiguous) and lengths of the read-strands, which the device
         finish reuses."""
-        cfg, st = self.cfg, self.state
-        codes2, emis2 = strand_expand(codes, pwm_q, lens, st["S_plus"],
-                                      st["S_minus"])
-        max_sc = nw_ref.max_read_scores(emis2)
-        cands, valid = self._seed(codes2)
-        lens2 = torch.cat([lens, lens], dim=0)
-        emis2_t = emis2.transpose(1, 2).contiguous()
-        kw = dict(L=cfg.max_read_len, W=cfg.window_width(),
-                  slack=cfg.gap_slack, open_q=cfg.gap_open_q(),
-                  ext_q=cfg.gap_extend_q())
-        if cfg.band() is None:
-            scores = nw_full.nw_scores_full(emis2_t, cands, lens2,
-                                            st["g_codes"], **kw)
-        else:
-            boff, bw = cfg.band()
-            scores = nw_band.nw_scores_banded(emis2_t, cands, lens2,
-                                              st["g_codes"], boff=boff,
-                                              bw=bw, **kw)
-        scores = torch.where(valid, scores, NEG_INF)
-        return cands, valid, scores, max_sc, emis2_t, lens2
+        g = self.state["g_codes"]
+        return device_map(self.cfg, self.state, codes, pwm_q, lens,
+                          self._seed, lambda e, c, l2: score_pairs(
+                              self.cfg, e, c, l2, g))
 
     def _device_map_packed(self, codes, pwm_q, lens):
         """All outputs in ONE int32 blob: [cands | scores | max_sc]."""
@@ -1097,7 +1117,7 @@ def map_stream(mapper: TorchMapper, batches: Iterable[ReadBatch],
     # [FROZEN v5] device accumulation: coverage / tallies live on the device
     # and are fetched only at checkpoints and at the end: no host arrays,
     # no per-batch scatter
-    dev_acc = mapper.accumulate == "device"
+    dev_acc = getattr(mapper, "accumulate", "host") == "device"
     # coverage RSS must not scale with genome length when nothing consumes it
     need_cov = (cfg.sgr_out or cfg.sgrex_out or cfg.snp_mode) and not dev_acc
     coverage = (np.zeros(len(gen.codes), dtype=np.float64)
@@ -1131,8 +1151,13 @@ def map_stream(mapper: TorchMapper, batches: Iterable[ReadBatch],
 
     def results(depth: int = 3):
         """Keep ``depth`` batches in flight: device work overlaps host
-        finishing/parsing."""
+        finishing/parsing.  A mapper without ``submit`` (DistMapper, whose
+        collectives make each batch synchronous) maps one batch at a time."""
         from collections import deque
+        if not hasattr(mapper, "submit"):
+            for batch in batches:
+                yield batch, mapper.map_batch(batch, stats)
+            return
         q = deque()
         for batch in batches:
             q.append((batch, mapper.submit(batch)))
@@ -1156,6 +1181,13 @@ def map_stream(mapper: TorchMapper, batches: Iterable[ReadBatch],
             cov_rows: List[Tuple[int, int, float]] = []
             tally_rows: List[Tuple[int, bool, int, float, Optional[str]]] = []
             py_sam = cfg.sam_out and not use_native_sam
+            # genome-partitioned multi-host SAM: the mapper decides, per read,
+            # whether THIS host owns its records (segments.GlobalSegmentedMapper
+            # sets gp_sam each batch)
+            gp = (getattr(mapper, "gp_sam", None)
+                  if cfg.sam_out and getattr(mapper, "num_hosts", 1) > 1
+                  else None)
+            gp_host = getattr(mapper, "host_id", 0)
             for b, hits in enumerate(hits_per_read):
                 L = int(batch.lens[b])
                 codes = batch.codes[b, :L]
@@ -1165,7 +1197,9 @@ def map_stream(mapper: TorchMapper, batches: Iterable[ReadBatch],
                 else:
                     seq = qual = ""
                 if not hits:
-                    if py_sam:
+                    if py_sam and not (gp is not None
+                                       and (bool(gp["mapped"][b])
+                                            or gp_host != 0)):
                         emit(sam_io.unmapped_record(batch.names[b], seq, qual))
                     continue
                 for hi, h in enumerate(hits):
@@ -1191,7 +1225,8 @@ def map_stream(mapper: TorchMapper, batches: Iterable[ReadBatch],
                             sam_io.mapq_from_weight(h.weight), h.cigar,
                             oseq, oqual, h.score, h.weight))
             if use_native_sam:
-                emit(format_sam_batch_native(gen, batch, hits_per_read))
+                emit(format_sam_batch_native(gen, batch, hits_per_read,
+                                             gp=gp, host_id=gp_host))
             if coverage is not None:
                 _scatter_coverage(coverage, cov_rows)
             if tallies is not None and tally_rows:
@@ -1233,10 +1268,13 @@ def map_stream(mapper: TorchMapper, batches: Iterable[ReadBatch],
     return MapResult(coverage, tallies, sam_lines, stats)
 
 
-def format_sam_batch_native(gen: Genome, batch: ReadBatch,
-                            hits_per_read) -> str:
+def format_sam_batch_native(gen: Genome, batch: ReadBatch, hits_per_read,
+                            gp=None, host_id: int = 0) -> str:
     """One batch of SAM records via the native formatter — byte-identical
-    to the per-record io/sam.py path."""
+    to the per-record io/sam.py path.  ``gp``: genome-partitioned
+    multi-host metadata (segments.gp_sam) — a read with no LOCAL hits
+    emits nothing when another host owns its records (globally mapped, or
+    unmapped with host_id != 0)."""
     from gnumap_tpu_torch.config import SCORE_ONE
     from gnumap_tpu_torch.native import lib as native_lib
     n = batch.n
@@ -1248,9 +1286,13 @@ def format_sam_batch_native(gen: Genome, batch: ReadBatch,
     scores: List[int] = []
     weights: List[float] = []
     unmapped = np.zeros(n, np.uint8)
+    skip = np.zeros(n, np.uint8) if gp is not None else None
     for b, hits in enumerate(hits_per_read):
         if not hits:
-            unmapped[b] = 1
+            if gp is not None and (bool(gp["mapped"][b]) or host_id != 0):
+                skip[b] = 1
+            else:
+                unmapped[b] = 1
             continue
         pure = f"{int(lens[b])}M"
         for hi, h in enumerate(hits):
@@ -1282,7 +1324,7 @@ def format_sam_batch_native(gen: Genome, batch: ReadBatch,
         gen.names, np.asarray(b_idx, np.int32),
         np.asarray(flags, np.int32), ci.astype(np.int32),
         off.astype(np.int64), mq, cigs, sc,
-        sc.astype(np.float64) / SCORE_ONE, w, unmapped, skip=None)
+        sc.astype(np.float64) / SCORE_ONE, w, unmapped, skip=skip)
     return buf.decode("ascii")
 
 

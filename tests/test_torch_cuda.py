@@ -11,7 +11,10 @@ launch), and
 the mapper on the card to the mapper on the CPU, with the device finish,
 the host finish and device accumulation; the FM search (index/fm.fm_hits),
 the bisulfite seeding (seed_kmers_b3) and the mapper on each index kind and
-through GlobalSegmentedMapper, on the card and on the CPU.
+through GlobalSegmentedMapper, on the card and on the CPU; the reads x
+index mesh (dist/collectives.DistMapper) on the card, in a world of one
+rank on NCCL and of two ranks sharing the card over gloo, against
+TorchMapper on the card.
 """
 
 import numpy as np
@@ -649,3 +652,41 @@ def test_mapper_kinds_on_card_equal_cpu(kind):
     assert sam_c == sam_h
     assert np.array_equal(cov_c, cov_h)
     assert st_c.n_mapped == st_h.n_mapped and st_c.n_mapped > 580
+
+
+@pytest.mark.parametrize("world,backend,R,S", [(1, "nccl", 1, 1),
+                                              (2, "gloo", 2, 1),
+                                              (2, "gloo", 1, 2)])
+def test_dist_mapper_on_card_equals_torch_mapper(world, backend, R, S,
+                                                 tmp_path):
+    """DistMapper on an R x S mesh whose ranks run on the card (NCCL at
+    world size 1; two ranks on one card over gloo, the tensors staged
+    through host memory), with the device and the host finish: every rank's
+    global hits equal TorchMapper's on the card, field for field."""
+    from torch_dist_worker import run_world
+    dev = _card()
+    cfg = MapperConfig(mer_size=10, seed_jump=5, batch_size=256,
+                       max_read_len=104, max_candidates=32)
+    g = sim.random_genome(200_000, seed=3, repeat_frac=0.02)
+    gen = builder.Genome.from_contigs([("ref_sim", g)])
+    idx = builder.build_index(gen, cfg)
+    reads = sim.simulate_reads(g, 256, 100, seed=4, sub_rate=0.01,
+                               indel_rate=0.2, contig="ref_sim")
+    recs = [io_fastq.ReadRecord(
+        r.name, packing.encode(r.seq), None,
+        (np.frombuffer(r.qual.encode(), np.uint8) - 33).astype(np.int16))
+        for r in reads]
+    batch = next(io_fastq.batch_reads(iter(recs), cfg))
+    want = [[(h.strand, h.pos, h.score, h.cigar, h.ref_len, h.weight)
+             for h in hits]
+            for hits in tm.TorchMapper(gen, idx, cfg,
+                                       device=dev).map_batch(batch)]
+    assert sum(1 for h in want if h) > 250
+    tasks = [("dist", dict(R=R, S=S, genome=gen, index=idx, cfg=cfg,
+                           batch=batch, finish_impl=f, device="cuda"))
+             for f in ("device", "host")]
+    for rank, runs in enumerate(run_world(world, tasks, tmp_path,
+                                          backend=backend)):
+        for run in runs:
+            assert run["coords"] == (rank // S, rank % S)
+            assert run["hits"] == want

@@ -630,3 +630,59 @@ def test_native_scatters_index_and_suffix_array(native_libs):
             pos, w, cigars, float(jconfig.PWM_SCALE))
     same(tal[0], tal[1], "scatter_tallies")
     assert tal[0].sum() > 0
+
+
+MULTIHOST_COPIES = ("strided", "_next_record_start", "fastq_ranges",
+                    "shard_paths", "write_shard_index",
+                    "merge_sam_shards_gp", "merge_sam_shards")
+
+
+@pytest.mark.parametrize("name", MULTIHOST_COPIES)
+def test_multihost_host_functions_are_copies(name):
+    """dist/multihost.py's host-only functions are the JAX package's,
+    line for line (its process group, barrier and allreduce_f64 are the
+    torch.distributed port: tests/test_torch_multihost.py)."""
+    import inspect
+    from gnumap_tpu.dist import multihost as jmh
+    from gnumap_tpu_torch.dist import multihost as tmh
+    assert inspect.getsource(getattr(tmh, name)) == \
+        inspect.getsource(getattr(jmh, name))
+
+
+def test_multihost_partitions_and_merges(tmp_path):
+    """The copies at work: equal byte ranges of the test FASTQ for 1-5
+    hosts, equal batch strides, and equal merged SAM bytes from the same
+    per-host shards, span-indexed and per-record (genome-partitioned), with
+    the shards removed afterwards."""
+    from gnumap_tpu.dist import multihost as jmh
+    from gnumap_tpu_torch.dist import multihost as tmh
+    for n in range(1, 6):
+        rj = jmh.fastq_ranges(FASTQ, n)
+        same(rj, tmh.fastq_ranges(FASTQ, n), f"fastq_ranges {n}")
+        assert rj[0][0] == 0 and rj[-1][1] == os.path.getsize(FASTQ)
+        same(list(jmh.strided(range(11), n, n - 1)),
+             list(tmh.strided(range(11), n, n - 1)), f"strided {n}")
+    lines = [[f"r{h}_{i}\t0\tchr\t{i}\n" for i in range(5)] for h in (0, 1)]
+    for mod in (jmh, tmh):
+        for mode in ("spans", "gp"):
+            out = str(tmp_path / f"{mod.__name__.split('.')[0]}_{mode}")
+            for h in (0, 1):
+                body, idx = mod.shard_paths(out, h)
+                with open(body, "w") as f:
+                    f.writelines(lines[h])
+                if mode == "spans":
+                    rows, off = [], 0
+                    for i, ln in enumerate(lines[h]):
+                        rows.append((2 * i + h, 0, off, off + len(ln)))
+                        off += len(ln)
+                else:
+                    rows = [(i // 2, i % 3, 2 * i + h) for i in range(5)]
+                mod.write_shard_index(idx, rows)
+            merge = (mod.merge_sam_shards if mode == "spans"
+                     else mod.merge_sam_shards_gp)
+            merge(out, 2, "@HD\tVN:1.6\n")
+            assert not any(os.path.exists(p) for h in (0, 1)
+                           for p in mod.shard_paths(out, h))
+    for mode in ("spans", "gp"):
+        same((tmp_path / f"gnumap_tpu_{mode}.sam").read_bytes(),
+             (tmp_path / f"gnumap_tpu_torch_{mode}.sam").read_bytes(), mode)

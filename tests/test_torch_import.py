@@ -28,7 +28,8 @@ for want in ("config", "core.packing", "core.pwm", "align.scoring",
              "native.lib", "index.builder", "index.store", "io.fastq",
              "io.sam", "io.sgr", "oracle.oracle", "posterior.snp",
              "utils.sim", "pipeline.mapper", "cli.main", "index.fm",
-             "dist.segments"):
+             "dist.segments", "dist.mesh", "dist.collectives",
+             "dist.multihost", "utils.profiling"):
     assert "gnumap_tpu_torch." + want in names, want
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "gnumap_tpu", "bench"))

@@ -141,13 +141,17 @@ def test_cuda_without_card_raises(tcfg, tphix):
                    os.path.join(ROOT, "testdata", "phix_sim_200.fastq")])
 
 
-@pytest.mark.parametrize("flags", [["--num-hosts", "2"], ["-c", "2"],
-                                   ["--index-shards", "2"],
+@pytest.mark.parametrize("flags", [["--index-type", "fm", "-c", "2"],
+                                   ["-c", "2"],
+                                   ["-c", "2", "--index-shards", "2",
+                                    "--num-hosts", "2"],
                                    ["--accumulate", "device"]])
 def test_cli_unported_flags_raise(flags, tmp_path):
-    """Flags of paths not yet ported raise before any output is written.
-    --accumulate device is ported: it runs, and is refused with segments or
-    shards as the JAX CLI refuses it."""
+    """The refusals of the sharded flags, made before any process group or
+    output exists: the FM index with -c 2 (the JAX CLI's "single-device"
+    refusal); -c R --index-shards S with a --num-hosts other than R * S (a
+    rank owns one device); --accumulate device with segments or -c 2, as
+    the JAX CLI refuses it, while it runs alone."""
     argv = ["-g", os.path.join(ROOT, "testdata", "phix_sim.fa"),
             "-o", str(tmp_path / "x"), "-m", "8", "-L", "40",
             "--device", "cpu", *flags,
@@ -160,7 +164,9 @@ def test_cli_unported_flags_raise(flags, tmp_path):
         assert tcli.main(argv) == 0
         assert os.path.getsize(tmp_path / "x.sgr") > 0
         return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    want = ("--index-type fm is single-device" if "fm" in flags
+            else "R\\*S processes started with --num-hosts R\\*S")
+    with pytest.raises(SystemExit, match=want):
         tcli.main(argv)
     assert not os.path.exists(tmp_path / "x.sam")
 
@@ -339,3 +345,21 @@ def test_map_stream_python_sam_equals_native(small_cfg, tcfg, tphix,
     py = run()
     assert "".join(py.sam_lines) == native
     assert py.stats.n_reads == len(phix_reads)
+
+
+def test_profiling_trace_and_annotate(small_cfg, tcfg, tphix, phix_reads,
+                                      tmp_path):
+    """utils/profiling (the counterpart of gnumap_tpu/utils/profiling.py):
+    trace(dir) writes a Chrome trace of the region, in which an
+    annotate(name) region around a map_batch shows by name."""
+    from gnumap_tpu_torch.utils import profiling
+    batch = to_port(next(io_fastq.batch_reads(
+        iter(records_from_sim(phix_reads[:8], small_cfg)), small_cfg)))
+    m = tm.TorchMapper(*tphix, tcfg, device="cpu")
+    with profiling.trace(str(tmp_path / "tr")):
+        with profiling.annotate("gnumap_map_batch"):
+            out = m.map_batch(batch)
+    assert len(out) == 8 and any(out)
+    files = list((tmp_path / "tr").glob("trace.*.json"))
+    assert len(files) == 1
+    assert "gnumap_map_batch" in files[0].read_text()

@@ -222,11 +222,33 @@ def test_segment_bounds_past_int32():
 
 
 def test_global_segmented_refuses_unported_modes(small_cfg, two_contigs):
-    """num_hosts > 1 (the genome-partitioned multi-host mode) and a mesh
-    per segment are not ported: both raise before any index is built."""
-    contigs, _ = two_contigs
+    """mesh= and num_hosts= are taken.  A mesh (here a world of one rank)
+    maps every segment through a DistMapper, equal to the segments on
+    TorchMapper; the mesh's refusals reach through (max_candidates must
+    divide by 8 * index_shards).  num_hosts > 1 needs a process group of
+    that many ranks, and host_id a rank in it (the two-process runs are in
+    tests/test_torch_multihost.py)."""
+    import dataclasses
+    from gnumap_tpu_torch.dist import collectives, mesh as tmesh
+    contigs, batch = two_contigs
     tgen = to_port(builder.Genome.from_contigs(contigs))
-    for kw in (dict(num_hosts=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tseg.GlobalSegmentedMapper(tgen, to_port(small_cfg),
-                                       device="cpu", **kw)
+    tcfg = to_port(small_cfg)
+    mesh = tmesh.make_mesh(device="cpu")
+    on_mesh = tseg.GlobalSegmentedMapper(tgen, tcfg, n_segments=2, mesh=mesh)
+    assert on_mesh.n_segments == 2 and on_mesh.device == mesh.device
+    assert all(isinstance(m, collectives.DistMapper)
+               for m in on_mesh.mappers)
+    plain = tseg.GlobalSegmentedMapper(tgen, tcfg, device="cpu",
+                                       n_segments=2)
+    stats = tm.BatchStats()
+    got = on_mesh.map_batch(to_port(batch), stats)
+    assert _hits(got) == _hits(plain.map_batch(to_port(batch)))
+    assert stats.n_mapped == sum(1 for h in got if h) > 0
+    three = dataclasses.replace(mesh, shape={"reads": 1, "index": 3})
+    with pytest.raises(ValueError, match="8\\*index_shards"):
+        tseg.GlobalSegmentedMapper(tgen, tcfg, n_segments=2, mesh=three)
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
+        tseg.GlobalSegmentedMapper(tgen, tcfg, device="cpu", num_hosts=2)
+    with pytest.raises(ValueError, match="host_id 2 not in"):
+        tseg.GlobalSegmentedMapper(tgen, tcfg, device="cpu", num_hosts=2,
+                                   host_id=2)
