@@ -66,6 +66,18 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              where it has live hits): vs plain, time, bound
   parity     the first 1,024 reads mapped with --device cuda and
              --device cpu (device finish): equal SAM bodies and SGR bytes
+  golden     the golden command of tests/golden/README through the CLI on
+             the card: phix.sam equal to the golden file but for its @PG
+             line, .sgr and .sgrex to tests/golden/SHA256SUMS; then the reference's bench config 1 (5,386 bases,
+             10,000 reads of 36 bp) through the CLI on the card and the
+             CPU: equal SAM bodies and SGR bytes, its mapped count 9,843
+  map_ckpt   the map phase's data: the CLI with --sort-sam (bench config 9)
+             on the card and the CPU, equal SAM files holding the map run's
+             records; the CLI at -B 1024 without and with --checkpoint
+             (every 4 batches): the checkpoint's cost; then the checkpointed
+             command as a process of its own, killed (SIGKILL) once its
+             checkpoint file has been written twice, and run again: SAM
+             body and SGR bytes equal the uninterrupted run's
   map_unbanded  the map phase's reads through TorchMapper(MapperConfig(
              gap_slack=16, ...)) and map_stream: unbanded scoring (B4) and
              the traceback on every retained hit (B3, band=None); device
@@ -79,6 +91,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              n_real = 0 floor, and device_accumulate with and without B5
              (the work around the kernel); then the CLI with --accumulate
              device --snp on 1,024 config-2 reads against --accumulate host
+  map_multi  the reference's bench config 8: build_config10's data (built
+             once for map_acc) without SNP mode, TorchMapper and map_stream,
+             SAM on: its mapped and multi-mapped counts 16,383 and 4,132,
+             accuracy by sam_accuracy and by bench.py's rule (bench_account:
+             the truth among the hits of the largest weight), reads with
+             more than one co-best record; card against CPU on 1,024 reads
+             planted in repeat copies: SAM and SGR bytes
+  map_cfg3   the reference's bench configs 3 and 5 (build_config3): a
+             46,709,983-base genome, 2% in copies of one 500 bp unit, 16,384
+             reads, -m 13 -j 5, max_hits 8; config 3 through TorchMapper and
+             map_stream, config 5 the same in SNP mode with host coverage
+             and tallies, SAM on: counts 16,110 and 6, accuracy by both
+             rules, the one read both count wrong (CONFIG3_WRONG, whose
+             truth no seed reaches), its records; card against CPU in SNP
+             mode on 1,024 reads that hold it: SAM, SGR and SGREX bytes
   map_bs     the reference's bench config 4 (build_config4): 16,384
              bisulfite-converted reads against a 46,709,983-base genome on
              the per-strand collapsed CSR pair (-m 16, base-3 seeds),
@@ -118,7 +145,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 map_bs, map_fm and map_seg print reads/s, the card's kernel and copy time of a warm
 repeat under torch.profiler (its wall, and so the idle share beside it,
 includes the profiler's own cost) and the peak device memory of their main
-run beside what earlier phases still held when it started.
+run beside what earlier phases still held when it started; map_multi and
+map_cfg3 print reads/s and the peak device memory the same way.
 Each map phase sets every launch count to 0 before its run and fails unless
 the kernels of its path launched.  Each kernel is timed on the inputs of its
 path's first call beside its bound: the least time the card could take for
@@ -150,8 +178,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernel_b1", "kernel_b2", "kernel_b3",
           "kernel_b4", "kernel_b5", "map", "map_host", "map_indel", "parity",
-          "map_unbanded", "map_acc", "map_bs", "map_fm", "map_seg",
-          "map_dist")
+          "golden", "map_ckpt", "map_unbanded", "map_acc", "map_multi",
+          "map_cfg3", "map_bs", "map_fm", "map_seg", "map_dist")
 GENOME_LEN = 4_641_652
 N_READS = 16_384
 READ_LEN = 100
@@ -180,7 +208,9 @@ PATHS = {"map": (("nw_band", "nw_pure", "nw_tb"), ("nw_full", "accum")),
          "map_acc": (("nw_band", "nw_pure", "nw_tb", "accum"), ("nw_full",)),
          "map_bs": (("nw_band", "nw_pure", "nw_tb"), ("nw_full", "accum")),
          "map_fm": (("nw_band", "nw_pure", "nw_tb"), ("nw_full", "accum")),
-         "map_seg": (("nw_band", "nw_pure", "nw_tb"), ("nw_full", "accum"))}
+         "map_seg": (("nw_band", "nw_pure", "nw_tb"), ("nw_full", "accum")),
+         **{p: (("nw_band", "nw_pure", "nw_tb"), ("nw_full", "accum"))
+            for p in ("golden", "map_ckpt", "map_multi", "map_cfg3")}}
 # launches a path makes exactly: B2 once a batch on map (2 batches); B5 once
 # a batch on map_acc, coverage and tallies in one launch
 # the kernels every rank of a map_dist world must launch (the host finish
@@ -918,6 +948,13 @@ def sam_accuracy(sam_path: str):
     """(n_reads, n_mapped, accuracy): a mapped read is correct when its
     truth locus (read name sim_<i>_<contig>_<pos>_<strand>) is among its
     co-best weighted records, within 3 bases, on the right strand."""
+    n, n_mapped, wrong = sam_truth(sam_path)
+    return n, n_mapped, (n_mapped - len(wrong)) / max(n_mapped, 1)
+
+
+def sam_truth(sam_path: str):
+    """(n_reads, n_mapped, names of the mapped reads sam_accuracy counts
+    wrong)."""
     from gnumap_tpu_torch.utils.sim import parse_truth
     recs = {}
     with open(sam_path) as f:
@@ -931,16 +968,17 @@ def sam_accuracy(sam_path: str):
                 continue
             w = float(next(x for x in t[11:] if x.startswith("XP:f:"))[5:])
             lst.append((w, t[2], int(t[3]) - 1, "-" if flag & 16 else "+"))
-    n_mapped = n_ok = 0
+    n_mapped, wrong = 0, []
     for name, lst in recs.items():
         if not lst:
             continue
         n_mapped += 1
         tc, tp, ts = parse_truth(name)
         best = max(w for w, *_ in lst)
-        n_ok += any(w == best and c == tc and abs(p - tp) <= 3 and s == ts
-                    for w, c, p, s in lst)
-    return len(recs), n_mapped, n_ok / max(n_mapped, 1)
+        if not any(w == best and c == tc and abs(p - tp) <= 3 and s == ts
+                   for w, c, p, s in lst):
+            wrong.append(name)
+    return len(recs), n_mapped, wrong
 
 
 def run_cli(argv):
@@ -1012,6 +1050,199 @@ def map_indel(tmp, fa, genome_str, pl, wrappers):
     return dict(reads=1024, sam_equal=len(sams) == 1,
                 sgr_equal=len(sgrs) == 1, n_indel=sum(n_indel),
                 gapped_records=gapped, **res), spies["nw_tb"]
+
+
+GOLDEN_ARGS = ["-m", "8", "-j", "4", "-B", "128", "-L", "40", "--snp"]
+# bench config 1 (bench.py CONFIGS[1]) as CLI flags: 32 candidates, max_hits 8
+CONFIG1_ARGS = ["-m", "8", "-j", "4", "-L", "40", "-q", "32", "-k", "8",
+                "-B", "8192"]
+CONFIG1_MAPPED = 9_843     # the reference's mapped count (BENCH_r05.json)
+
+
+def golden(tmp, wrappers):
+    """The golden command of tests/golden/README through the port's CLI on
+    the card (its default device): its SAM equal to the golden file but for
+    the @PG line (the command line), its SGR and SGREX to
+    tests/golden/SHA256SUMS; then bench config 1 (5,386 bases, 10,000 reads
+    of 36 bp, seeds 0 and 7) through the CLI on the card and on the CPU.
+    Returns (result, failures, launches of both card runs, spies)."""
+    import hashlib
+    from gnumap_tpu_torch.utils import sim
+    want = {}
+    with open(os.path.join(ROOT, "tests", "golden", "SHA256SUMS")) as f:
+        for line in f:
+            h, p = line.split()
+            want[os.path.basename(p)] = h
+    o = os.path.join(tmp, "phix")
+    argv = ["-g", os.path.join(ROOT, "testdata", "phix_sim.fa"), "-o", o,
+            *GOLDEN_ARGS, os.path.join(ROOT, "testdata", "phix_sim_200.fastq")]
+    genome = sim.random_genome(5_386, seed=0)
+    fa1 = os.path.join(tmp, "config1.fa")
+    fq1 = os.path.join(tmp, "config1.fastq")
+    sim.write_fasta(fa1, [("ref_sim", genome)])
+    sim.write_fastq(fq1, sim.simulate_reads(genome, 10_000, 36, seed=7,
+                                            sub_rate=0.01, contig="ref_sim"))
+
+    def config1(dev):
+        o1 = os.path.join(tmp, "config1_" + dev)
+        d = run_cli(["-g", fa1, "-o", o1, *CONFIG1_ARGS, "--device", dev,
+                     fq1])
+        return d, sam_body(o1 + ".sam"), file_bytes(o1 + ".sgr"), o1
+
+    def card():
+        return run_cli(argv), config1("cuda")
+
+    (d, c1), launches, spies = drive(card, PATHS["golden"][0], wrappers)
+    # the SAM is held to the golden file but for its @PG line (the command
+    # line), and the golden file to SHA256SUMS; SGR and SGREX by sha256
+    gold = os.path.join(ROOT, "tests", "golden", "phix.sam")
+    sam_equal = (sam_body(o + ".sam") == sam_body(gold) and hashlib.sha256(
+        file_bytes(gold)).hexdigest() == want["phix.sam"])
+    got = {f"phix.{x}": hashlib.sha256(file_bytes(f"{o}.{x}")).hexdigest()
+           for x in ("sgr", "sgrex")}
+    golden_equal = sam_equal and all(got[k] == want[k] for k in got)
+    c1_cpu = config1("cpu")
+    n, n_mapped, acc = sam_accuracy(c1[3] + ".sam")
+    c1_equal = c1[1:3] == c1_cpu[1:3]
+    failures = []
+    if not golden_equal:
+        failures.append(f"golden: SAM body equal {sam_equal}, sha256 {got} "
+                        f"against {want}")
+    if not c1_equal or n_mapped != CONFIG1_MAPPED or acc < 0.999:
+        failures.append(f"golden config 1: cuda == cpu {c1_equal}, mapped "
+                        f"{n_mapped}, accuracy {acc}")
+    return dict(golden_equal=golden_equal, golden_sam_body_equal=sam_equal,
+                golden_reads=d["reads"], golden_mapped=d["mapped"],
+                config1=dict(
+                    reads=n, mapped=n_mapped,
+                    mapped_reference_bench=CONFIG1_MAPPED,
+                    mapped_rate=n_mapped / max(n, 1), accuracy=acc,
+                    cuda_equal_cpu=c1_equal, map_s=c1[0]["map_s"],
+                    reads_per_s=c1[0]["reads_per_s"],
+                    cpu_map_s=c1_cpu[0]["map_s"],
+                    peak_device_bytes=c1[0]["peak_device_bytes"]),
+                launches=launches), failures, launches, spies
+
+
+def map_ckpt(tmp, fa, fq, map_out, wrappers):
+    """Bench config 9's --sort-sam and checkpoint / resume on the map
+    phase's data.  (1) The CLI with --sort-sam on the card and on the CPU:
+    equal SAM files, the records those of the unsorted map run.  (2) The
+    CLI at -B 1024 without and with --checkpoint (every 4 batches), in
+    process, on the card: the checkpoint's cost; (3) the checkpointed
+    command as a process of its own, killed (SIGKILL) once its checkpoint
+    file has been written twice, then the same command again: SAM body and
+    SGR bytes equal the uninterrupted run's, and the second run mapped only
+    the batches after the checkpoint's.  Returns (result, failures,
+    launches of the in-process card runs)."""
+    import signal
+    from gnumap_tpu_torch.pipeline import checkpoint as ckpt
+    small = [a if a != "8192" else "1024" for a in CLI_ARGS]
+    out = {k: os.path.join(tmp, "ckpt_" + k)
+           for k in ("sort_cuda", "sort_cpu", "plain", "ref", "killed")}
+    ck_ref, ck = out["ref"] + ".npz", out["killed"] + ".npz"
+    every = ["--checkpoint-every", "4"]
+
+    def card():
+        d_sort = run_cli(["-g", fa, "-o", out["sort_cuda"], *CLI_ARGS,
+                          "--device", "cuda", "--sort-sam", fq])
+        d_plain = run_cli(["-g", fa, "-o", out["plain"], *small, "--device",
+                           "cuda", fq])
+        d_ref = run_cli(["-g", fa, "-o", out["ref"], *small, "--device",
+                         "cuda", "--checkpoint", ck_ref, *every, fq])
+        return d_sort, d_plain, d_ref
+
+    (d_sort, d_plain, d_ref), launches, _ = drive(card, (), wrappers)
+    run_cli(["-g", fa, "-o", out["sort_cpu"], *CLI_ARGS, "--device", "cpu",
+             "--sort-sam", fq])
+    sorted_sam = file_bytes(out["sort_cuda"] + ".sam")
+    sort_equal = sorted_sam == file_bytes(out["sort_cpu"] + ".sam")
+    lines = sorted_sam.decode().splitlines()
+    body = [x for x in lines if not x.startswith("@")]
+    same_records = None
+    if os.path.exists(map_out + ".sam"):
+        same_records = sorted(body) == sorted(
+            x for x in sam_body(map_out + ".sam").splitlines()
+            if not x.startswith("@"))
+    # the checkpointed command in a process of its own, killed after its
+    # second checkpoint, then run again to its end
+    cmd = [sys.executable, "-m", "gnumap_tpu_torch.cli.main", "-g", fa, "-o",
+           out["killed"], *small, "--device", "cuda", "--checkpoint", ck,
+           *every, "-v", fq]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    with open(out["killed"] + ".log", "w") as log:
+        p = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                             stderr=subprocess.STDOUT)
+    writes, last, deadline = 0, None, time.monotonic() + 600
+    try:
+        while p.poll() is None and time.monotonic() < deadline:
+            try:
+                st = os.stat(ck)
+                key = (st.st_ino, st.st_mtime_ns)
+            except FileNotFoundError:
+                key = None
+            if key is not None and key != last:
+                writes, last = writes + 1, key
+                if writes == 2:
+                    p.send_signal(signal.SIGKILL)
+                    break
+            time.sleep(0.002)
+    finally:
+        if p.poll() is None and writes < 2:
+            p.kill()
+        rc_killed = p.wait(timeout=60)
+    failures = []
+    done_at = ckpt.load(ck).batches_done if os.path.exists(ck) else None
+    if rc_killed != -signal.SIGKILL or writes < 2:
+        failures.append(f"map_ckpt: the run was not killed after its second "
+                        f"checkpoint (rc {rc_killed}, writes {writes})")
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=600)
+    resume_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        failures.append(f"map_ckpt: the resumed run failed: "
+                        f"{r.stderr[-2000:]}")
+    resumed = ([json.loads(x) for x in r.stdout.splitlines()
+                if x.startswith("{")] or [{}])[-1]
+    # -v prints each batch the run maps (numbered from 1) to stderr: the
+    # resumed run must map exactly the batches after the checkpoint's
+    n_batches = -(-d_plain["reads"] // 1024)
+    resumed_batches = [json.loads(x)["batch"] for x in r.stderr.splitlines()
+                       if x.startswith('{"event": "batch"')]
+    resumed_ok = (done_at is not None and 4 <= done_at < n_batches
+                  and resumed_batches == list(range(done_at + 1,
+                                                    n_batches + 1)))
+    if not resumed_ok:
+        failures.append(f"map_ckpt: the rerun did not resume after batch "
+                        f"{done_at} of {n_batches}: it mapped batches "
+                        f"{resumed_batches}")
+    outs = {k: (sam_body(out[k] + ".sam"), file_bytes(out[k] + ".sgr"))
+            for k in ("plain", "ref", "killed")
+            if os.path.exists(out[k] + ".sgr")}
+    resume_equal = outs.get("killed") == outs["ref"]
+    if not (sort_equal and same_records is not False and resume_equal
+            and outs["plain"] == outs["ref"]):
+        failures.append(f"map_ckpt: sort-sam cuda == cpu {sort_equal}, "
+                        f"records {same_records}, resumed == uninterrupted "
+                        f"{resume_equal}, checkpointed == plain "
+                        f"{outs['plain'] == outs['ref']}")
+    return dict(sort_sam=dict(
+        cuda_equal_cpu=sort_equal, records_equal_unsorted=same_records,
+        header_so=next((x for x in lines if x.startswith("@HD")), None),
+        map_s=d_sort["map_s"], reads_per_s=d_sort["reads_per_s"]),
+        checkpoint=dict(
+            batch=1024, every=4, plain_map_s=d_plain["map_s"],
+            checkpointed_map_s=d_ref["map_s"],
+            cost_share_of_map_s=(d_ref["map_s"] - d_plain["map_s"])
+            / d_plain["map_s"], checkpointed_equal_plain=outs["plain"]
+            == outs["ref"], killed_rc=rc_killed, checkpoint_writes_seen=writes,
+            batches_done_at_kill=done_at, batches=n_batches,
+            resumed_batches_mapped=len(resumed_batches),
+            resumed_reads=resumed.get("reads"),
+            resume_process_s=resume_s, resumed_equal_uninterrupted=
+            resume_equal), launches=launches), failures, launches
 
 
 def check_b5(rng, rowmul, order, R, H, reps):
@@ -1385,6 +1616,218 @@ def build_config10():
     return cfg, gen, idx, lazy_records(reads)
 
 
+def build_config3(genome_len=BIG_GENOME, n_reads=N_READS, snp=False):
+    """The reference's bench config 3, "chr21-scale multi-map posterior"
+    (bench.py's build_workload): a 46,709,983-base genome (seed 0) whose 2%
+    is 1,868 copies of one 500 bp unit; 16,384 reads of 100 bp at 1%
+    substitutions (seed 7); -m 13 -j 5, max_hits 8, 32 candidates, L 104,
+    batches of 8,192, hit_capacity 1.  With snp, bench config 5 (the same
+    data in SNP mode).  Returns (cfg, genome, index, read records with lazy
+    PWMs), the cfg as bench.py makes it (SAM and SGR off)."""
+    from gnumap_tpu_torch.config import MapperConfig
+    from gnumap_tpu_torch.index import builder
+    from gnumap_tpu_torch.utils import sim
+    cfg = MapperConfig(mer_size=13, seed_jump=5, batch_size=8192,
+                       max_read_len=104, max_candidates=32,
+                       max_hits_per_seed=8, sam_out=False, sgr_out=False,
+                       snp_mode=snp, hit_capacity=1)
+    genome = sim.random_genome(genome_len, seed=0, repeat_frac=0.02)
+    gen = builder.Genome.from_contigs([("ref_sim", genome)])
+    idx = builder.build_index(gen, cfg)
+    reads = sim.simulate_reads(genome, n_reads, READ_LEN, seed=7,
+                               sub_rate=0.01, contig="ref_sim")
+    return cfg, gen, idx, lazy_records(reads)
+
+
+def bench_account(gen, batches, hits):
+    """bench.py's own accuracy rule (run_pipeline's account): over the reads
+    with at least one hit, the share whose truth locus (contig, position
+    within 3 bases, strand) is among the hits of the largest weight.
+    Returns (reads with more than one hit of that weight, accuracy, the
+    names of the reads it counts wrong)."""
+    import numpy as np
+    from gnumap_tpu_torch.utils.sim import parse_truth
+    n_primary = n_cobest = 0
+    wrong = []
+    for batch, per_read in zip(batches, hits):
+        for name, hs in zip(batch.names, per_read):
+            if not hs:
+                continue
+            n_primary += 1
+            best = max(h.weight for h in hs)
+            top = [h for h in hs if h.weight == best]
+            n_cobest += len(top) > 1
+            ci, off = gen.locate(np.asarray([h.pos for h in top], np.int64))
+            tc, tp, ts = parse_truth(name)
+            if not any(gen.names[int(c)] == tc and abs(int(o) - tp) <= 3
+                       and h.strand == ts
+                       for c, o, h in zip(np.atleast_1d(ci),
+                                          np.atleast_1d(off), top)):
+                wrong.append(name)
+    return n_cobest, 1 - len(wrong) / max(n_primary, 1), wrong
+
+
+@functools.lru_cache(maxsize=1)
+def config10():
+    """build_config10() once for map_acc and map_multi (config 8 is config
+    10's data without SNP mode)."""
+    return build_config10()
+
+
+# the reference's counts (BENCH_r05.json) and the one read that bench
+# configs 3 and 5 map wrongly (ROADMAP C.4: its truth is never a candidate)
+CONFIG3_MAPPED, CONFIG3_MULTI = 16_110, 6
+CONFIG3_WRONG = ("sim_3473_ref_sim_13817925_-",)
+CONFIG8_MAPPED, CONFIG8_MULTI = 16_383, 4_132
+
+
+def mapped_on_card(pl, gen, idx, cfg, batches, tmp, name, wrappers=None):
+    """TorchMapper on the card through map_stream, SAM in memory (counted,
+    with spies on B1-B3, when wrappers are given); then an untimed map_batch
+    pass for bench.py's accuracy rule.  Returns (result, MapResult,
+    launches, spies)."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    m = pl.TorchMapper(gen, idx, cfg, device="cuda")
+    launches, spies = None, {}
+    if wrappers is None:
+        res, wall = run_stream(pl, m, batches)
+    else:
+        (res, wall), launches, spies = drive(
+            lambda: run_stream(pl, m, batches), PATHS[name][0], wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    hits = [m.map_batch(b) for b in batches]
+    del m
+    torch.cuda.empty_cache()
+    path = os.path.join(tmp, name + ".sam")
+    with open(path, "w") as f:
+        f.writelines(res.sam_lines)
+    n, n_mapped, wrong = sam_truth(path)
+    acc = (n_mapped - len(wrong)) / max(n_mapped, 1)
+    n_cobest, acc_bench, wrong_bench = bench_account(gen, batches, hits)
+    return dict(reads=n, mapped=res.stats.n_mapped,
+                multi_mapped=res.stats.n_multi, sam_mapped=n_mapped,
+                candidates=res.stats.n_candidates, map_s=wall,
+                reads_per_s=n / wall, accuracy=acc, wrong=wrong,
+                accuracy_bench_rule=acc_bench, wrong_bench_rule=wrong_bench,
+                reads_with_cobest_records=n_cobest, peak_device_bytes=peak,
+                held_before_bytes=held), res, launches, spies
+
+
+def card_equals_cpu(pl, gen, idx, cfg, recs):
+    """The records mapped on the card and on the CPU (the kernels' plain
+    versions) through map_stream: SAM, SGR and, in SNP mode, SGREX bytes.
+    Returns (equal, SAM records)."""
+    import dataclasses
+    from gnumap_tpu_torch.io import fastq as io_fastq, sgr as sgr_io
+    from gnumap_tpu_torch.posterior import snp
+    cfg = dataclasses.replace(cfg, sam_out=True, sgr_out=True,
+                              sgrex_out=cfg.snp_mode)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        m = pl.TorchMapper(gen, idx, cfg, device=dev)
+        res = pl.map_stream(m, io_fastq.batch_reads(iter(recs), cfg),
+                            collect_sam=True)
+        sgr, sgrex = io.StringIO(), io.StringIO()
+        sgr_io.write_sgr(sgr, gen, res.coverage, cfg.min_coverage_emit)
+        if res.tallies is not None:
+            sgr_io.write_sgrex(sgrex, gen, res.coverage, res.tallies,
+                               snp.snp_pvalues(gen.codes, res.coverage,
+                                               res.tallies),
+                               cfg.min_coverage_emit)
+        outs[dev] = ("".join(res.sam_lines), sgr.getvalue(), sgrex.getvalue())
+        del m
+    return outs["cuda"] == outs["cpu"], outs["cuda"][0].count("\n")
+
+
+def map_cfg3(tmp, pl, wrappers):
+    """Bench configs 3 and 5 on one genome (build_config3): config 3 through
+    TorchMapper and map_stream with SAM on (counted), config 5 the same
+    reads in SNP mode with host accumulation; each with accuracy by
+    sam_accuracy and by bench.py's rule; then the card against the CPU in
+    SNP mode on 1,024 reads that hold every read either rule counts wrong.
+    Returns (result, failures, launches, spies)."""
+    import dataclasses
+    from gnumap_tpu_torch.io import fastq as io_fastq
+    t0 = time.perf_counter()
+    cfg, gen, idx, recs = build_config3()
+    cfg = dataclasses.replace(cfg, sam_out=True)
+    batches = list(io_fastq.batch_reads(iter(recs), cfg))
+    setup_s = time.perf_counter() - t0
+    r3, res3, launches, spies = mapped_on_card(pl, gen, idx, cfg, batches,
+                                               tmp, "map_cfg3", wrappers)
+    cfg5 = dataclasses.replace(cfg, snp_mode=True)
+    r5, res5, _, _ = mapped_on_card(pl, gen, idx, cfg5, batches, tmp,
+                                    "map_cfg5")
+    wrong = set(r3["wrong"] + r3["wrong_bench_rule"] + r5["wrong"]
+                + r5["wrong_bench_rule"])
+    names = [r.name for r in recs]
+    keep = [names.index(w) for w in wrong]
+    rest = [i for i in range(len(recs)) if i not in keep]
+    sub = [recs[i] for i in sorted(keep + rest[:1024 - len(keep)])]
+    equal, records = card_equals_cpu(pl, gen, idx, cfg5, sub)
+    wrong_records = [x for x in "".join(res3.sam_lines).splitlines()
+                     if x.split("\t", 1)[0] in wrong]
+    failures = []
+    for name, r in (("config 3", r3), ("config 5", r5)):
+        if (r["mapped"], r["multi_mapped"]) != (CONFIG3_MAPPED,
+                                                CONFIG3_MULTI) \
+                or tuple(r["wrong_bench_rule"]) != CONFIG3_WRONG \
+                or r["accuracy"] < 0.999:
+            failures.append(f"map_cfg3 {name}: mapped {r['mapped']} multi "
+                            f"{r['multi_mapped']} wrong (bench rule) "
+                            f"{r['wrong_bench_rule']} accuracy "
+                            f"{r['accuracy']}")
+    sam_equal = res3.sam_lines == res5.sam_lines
+    if not (equal and sam_equal and len(sub) == 1024):
+        failures.append(f"map_cfg3: cuda == cpu on the subset {equal}, "
+                        f"config 3 SAM == config 5 SAM {sam_equal}")
+    return dict(genome_len=len(gen.codes), setup_s=setup_s,
+                mapped_reference_bench=CONFIG3_MAPPED,
+                multi_mapped_reference_bench=CONFIG3_MULTI,
+                config3=r3, config5=r5, config3_sam_equal_config5=sam_equal,
+                wrong_reads=sorted(wrong), wrong_read_records=wrong_records,
+                subset=dict(reads=len(sub), sam_records=records,
+                            cuda_equal_cpu=equal),
+                launches=launches), failures, launches, spies
+
+
+def map_multi(tmp, pl, wrappers):
+    """Bench config 8: config 10's genome and reads (config10(), built once
+    for map_acc) without SNP mode, max_hits 24, hit_capacity 8, through
+    TorchMapper and map_stream with SAM on (counted); accuracy by both
+    rules, reads with more than one co-best record; then the card against
+    the CPU on 1,024 reads planted in repeat copies.  Returns (result,
+    failures, launches, spies)."""
+    import dataclasses
+    from gnumap_tpu_torch.io import fastq as io_fastq
+    t0 = time.perf_counter()
+    cfg, gen, idx, recs = config10()
+    cfg = dataclasses.replace(cfg, snp_mode=False, sam_out=True)
+    batches = list(io_fastq.batch_reads(iter(recs), cfg))
+    setup_s = time.perf_counter() - t0
+    r, _, launches, spies = mapped_on_card(pl, gen, idx, cfg, batches, tmp,
+                                           "map_multi", wrappers)
+    n_rep = len(recs) // 4         # the last quarter is planted in copies
+    equal, records = card_equals_cpu(pl, gen, idx, cfg,
+                                     recs[-n_rep:][:1024])
+    failures = []
+    if ((r["mapped"], r["multi_mapped"]) != (CONFIG8_MAPPED, CONFIG8_MULTI)
+            or r["accuracy"] < 0.999 or r["accuracy_bench_rule"] < 0.999
+            or not equal):
+        failures.append(f"map_multi: mapped {r['mapped']} multi "
+                        f"{r['multi_mapped']} accuracy {r['accuracy']} / "
+                        f"{r['accuracy_bench_rule']} cuda == cpu {equal}")
+    return dict(genome_len=len(gen.codes), setup_s=setup_s,
+                max_hits=cfg.max_hits_per_seed, hit_capacity=cfg.hit_capacity,
+                mapped_reference_bench=CONFIG8_MAPPED,
+                multi_mapped_reference_bench=CONFIG8_MULTI, **r,
+                subset=dict(reads=min(n_rep, 1024), sam_records=records,
+                            cuda_equal_cpu=equal),
+                launches=launches), failures, launches, spies
+
+
 def map_acc(tmp, fa, reads, pl, wrappers):
     """Bench config 10 accumulated on the device twice and on the host
     once, then the CLI's --accumulate device --snp against --accumulate
@@ -1396,7 +1839,7 @@ def map_acc(tmp, fa, reads, pl, wrappers):
     from gnumap_tpu_torch.io import fastq as io_fastq
     from gnumap_tpu_torch.utils import sim
     t0 = time.perf_counter()
-    cfg, gen, idx, recs = build_config10()
+    cfg, gen, idx, recs = config10()
     cfg = dataclasses.replace(cfg, sam_out=True)
     batches = list(io_fastq.batch_reads(iter(recs), cfg))
     setup_s = time.perf_counter() - t0
@@ -2457,6 +2900,16 @@ def main(argv=None) -> int:
                  cuda_map_s=outs["cuda"][2]["map_s"])
             if not (same_sam and same_sgr):
                 failures.append("parity: cuda and cpu outputs differ")
+        if "golden" in only:
+            res, fails, launches, spies = golden(tmp, wrappers)
+            emit("golden", **res)
+            failures.extend(fails)
+            path_done("golden", launches, spies)
+        if "map_ckpt" in only:
+            res, fails, launches = map_ckpt(tmp, fa, fq, out, wrappers)
+            emit("map_ckpt", **res)
+            failures.extend(fails)
+            path_done("map_ckpt", launches, {})
         if "map_unbanded" in only:
             res, launches, spies = map_unbanded(tmp, fq, fa, pl, wrappers)
             emit("map_unbanded", **res)
@@ -2472,6 +2925,13 @@ def main(argv=None) -> int:
             emit("map_acc", **res)
             failures.extend(fails)
             path_done("map_acc", launches, spies)
+        for phase, fn in (("map_multi", map_multi), ("map_cfg3", map_cfg3)):
+            if phase in only:
+                res, fails, launches, spies = fn(tmp, pl, wrappers)
+                emit(phase, **res)
+                failures.extend(fails)
+                path_done(phase, launches, spies)
+        config10.cache_clear()
         if "map_bs" in only:
             res, fails, launches, spies = map_bs(tmp, fa, genome_str, pl,
                                                  wrappers)

@@ -502,6 +502,14 @@ def main(argv=None) -> int:
         "device_s": round(s.device_s, 3), "host_s": round(s.host_s, 3)}
     if multi or sharded:
         done["collectives"] = dataclasses.asdict(mesh_mod.COMM)
+    if m.device.type == "cuda":
+        import torch
+        done["peak_device_bytes"] = torch.cuda.max_memory_allocated(m.device)
+        if index is None and not sharded:
+            # what each segment's genome codes and index hold on the card
+            done["segment_device_bytes"] = [
+                sum(t.nbytes for t in s.state.values()
+                    if isinstance(t, torch.Tensor)) for s in m.mappers]
     print(json.dumps(done))
     multihost.shutdown()
     return 0

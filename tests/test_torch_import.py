@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: every module of its package, its CLI and
-the chip smoke script import with jax and the JAX package (gnumap_tpu) both
-blocked from import, and none of their sources names either."""
+"""The PyTorch port stands alone: every module of its package, its CLI, the
+chip smoke script and its scale tools (tools/torch_scale_run.py,
+tools/torch_scale3g.py) import with jax and the JAX package (gnumap_tpu)
+both blocked from import, and none of their sources names either."""
 
 import glob
 import os
@@ -24,6 +25,7 @@ names = [m.name for m in pkgutil.walk_packages(gnumap_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import tools.torch_scale_run, tools.torch_scale3g
 for want in ("config", "core.packing", "core.pwm", "align.scoring",
              "native.lib", "index.builder", "index.store", "io.fastq",
              "io.sam", "io.sgr", "oracle.oracle", "posterior.snp",
@@ -46,10 +48,13 @@ def test_port_imports_without_jax():
 
 
 def test_port_sources_name_no_jax_package():
-    """No source of the port or of chip_smoke.py imports gnumap_tpu, jax or
-    the JAX package's bench.py."""
+    """No source of the port, of chip_smoke.py or of the port's scale tools
+    imports gnumap_tpu, jax or the JAX package's bench.py."""
     files = glob.glob(os.path.join(ROOT, "gnumap_tpu_torch", "**", "*.py"),
-                      recursive=True) + [os.path.join(ROOT, "chip_smoke.py")]
+                      recursive=True) + [
+        os.path.join(ROOT, p) for p in ("chip_smoke.py",
+                                        "tools/torch_scale_run.py",
+                                        "tools/torch_scale3g.py")]
     assert len(files) > 30
     pat = re.compile(r"^\s*(?:import|from)\s+(?:gnumap_tpu|jax|jaxlib|bench)"
                      r"(?:[.\s]|$)", re.M)
