@@ -51,6 +51,13 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              (the launch floor) in order with pileups, 8,794 in any order,
              and the pair entry (coverage and tallies in one launch) against
              the two plain calls: bits, repeat launch, time, bound
+  host_mem   tools/torch_host_mem.py on the map phase's genome and reads
+             (written 5 times: 10 batches of 8,192) with CLI_ARGS: the CLI's
+             start-up and map in a fresh process, steps S0-S9 (RSS, peak
+             RSS, /proc/self/smaps by class, the caching host allocator),
+             beside F0, a process that only initialises CUDA; fails if RSS
+             at S7 (after the first batch) exceeds F0 + 1,024 MiB or the
+             named classes hold under 90% of it
   map        16,384 simulated 100 bp reads against a 4,641,652-base genome
              through the port's CLI (main(argv), --device cuda, device
              finish), SAM and SGR on; reads/s, mapped rate, accuracy from
@@ -177,9 +184,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernel_b1", "kernel_b2", "kernel_b3",
-          "kernel_b4", "kernel_b5", "map", "map_host", "map_indel", "parity",
-          "golden", "map_ckpt", "map_unbanded", "map_acc", "map_multi",
-          "map_cfg3", "map_bs", "map_fm", "map_seg", "map_dist")
+          "kernel_b4", "kernel_b5", "host_mem", "map", "map_host",
+          "map_indel", "parity", "golden", "map_ckpt", "map_unbanded",
+          "map_acc", "map_multi", "map_cfg3", "map_bs", "map_fm", "map_seg",
+          "map_dist")
 GENOME_LEN = 4_641_652
 N_READS = 16_384
 READ_LEN = 100
@@ -227,6 +235,10 @@ FULL = ((14, {}), (30, {}),
         (16, dict(mismatch_score=-8.0, gap_open=1.0, gap_extend=0.5)))
 # gap_slack of the live-slot sets of kernel_b1: band widths 42, 26 and 62
 LIVE_SET_SLACKS = (8, 4, 13)
+# host_mem's limit: RSS after the CLI's first batch on the map phase's data
+# may exceed F0 (torch imported, CUDA initialised) by this much; the port's
+# own arrays there are under 100 MB
+HOST_MEM_OVER_F0_MIB = 1024
 # slot capacity and live deltas of the first map_acc batch: the shapes of
 # kernel_b5's sets
 ACC_SLOTS = 131_072
@@ -1444,6 +1456,53 @@ def ordered_index_add(a, rowmul, reps, plain_out):
     return dict(ms=ms, bits_equal_plain=bool(torch.equal(
         bits[0], plain_out.view(torch.int32))),
         repeat_equal=bool(torch.equal(bits[0], bits[1])))
+
+
+def host_mem(fa, fq):
+    """tools/torch_host_mem.py (the probe, and F0) on the map phase's data,
+    each step's classes in MiB.  Returns (result, failures)."""
+    p = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "torch_host_mem.py"),
+         "--genome", fa, "--reads", fq, "--repeat", "5", "--", *CLI_ARGS],
+        capture_output=True, text=True, cwd=ROOT, timeout=600)
+    if p.returncode != 0:
+        raise RuntimeError(f"host_mem: probe failed (rc {p.returncode}): "
+                           + p.stderr[-3000:])
+    r = json.loads(p.stdout.splitlines()[-1])
+
+    def mib(kb):
+        return round(kb / 1024, 1)
+
+    def step(s):
+        c = s["classes"]
+        return dict(
+            step=s["step"], t_s=round(s["t_s"], 2), rss_mib=mib(s["rss_kb"]),
+            hwm_mib=mib(s["hwm_kb"]), threads=s["threads"],
+            attributed=round(s["attributed"], 4),
+            cuda_allocated=s.get("cuda_allocated"),
+            host_alloc=s.get("host_alloc"),
+            libs={os.path.basename(k): mib(v) for k, v in c["libs"].items()},
+            **{k: mib(c[k]) for k in ("libs_rest", "heap", "anon", "nvidia",
+                                      "other")},
+            other_largest={k: mib(v) for k, v in c["other_largest"].items()})
+
+    s7 = r["steps"][7]
+    limit = r["f0_rss_mib"] + HOST_MEM_OVER_F0_MIB
+    res = dict(card=r["card"], cli_args=r["cli_args"], repeat=r["repeat"],
+               f0_rss_mib=r["f0_rss_mib"], s7_rss_mib=mib(s7["rss_kb"]),
+               s7_limit_mib=limit, s7_over_f0_mib=r["s7_over_f0_mib"],
+               s7_attributed=r["s7_attributed"],
+               cuda_module_loading=s7["cuda_module_loading"],
+               floor=[step(x) for x in r["floor"]],
+               steps=[step(x) for x in r["steps"]])
+    fails = []
+    if res["s7_rss_mib"] > limit:
+        fails.append(f"host_mem: RSS at S7 {res['s7_rss_mib']} MiB over "
+                     f"F0 + {HOST_MEM_OVER_F0_MIB} = {limit} MiB")
+    if r["s7_attributed"] < 0.9:
+        fails.append(f"host_mem: named classes hold {r['s7_attributed']} "
+                     "of RSS at S7 (< 0.9)")
+    return res, fails
 
 
 def drive(fn, names, wrappers):
@@ -2828,6 +2887,11 @@ def main(argv=None) -> int:
         fq = os.path.join(tmp, "reads.fastq")
         sim.write_fastq(fq, reads)
         out = os.path.join(tmp, "map")
+        if "host_mem" in only:
+            t0 = time.perf_counter()
+            res, fails = host_mem(fa, fq)
+            emit("host_mem", seconds=time.perf_counter() - t0, **res)
+            failures.extend(fails)
         if "map" in only:
             t0 = time.perf_counter()
             done, launches, spies = drive(

@@ -307,6 +307,9 @@ def main(argv=None) -> int:
         m = pl.TorchMapper(genome, index, cfg, device=args.device,
                            accumulate=args.accumulate)
     t_index += time.perf_counter() - t0
+    # the index is on the device now; no later step reads its host arrays
+    segmented = index is None
+    index = None
     # who writes what: on a mesh every rank maps every batch and host 0
     # alone writes the outputs; otherwise a multi-host run writes per-host
     # SAM shards that host 0 merges
@@ -332,7 +335,7 @@ def main(argv=None) -> int:
             sam_f.seek(0)
             sam_io.write_header(sam_f, genome.names, genome.lengths,
                                 cmd=" ".join(sys.argv))
-    genome_partitioned = shards and index is None
+    genome_partitioned = shards and segmented
     callbacks = []
     if args.verbose:
         def _vcb(idx, s):
@@ -505,7 +508,7 @@ def main(argv=None) -> int:
     if m.device.type == "cuda":
         import torch
         done["peak_device_bytes"] = torch.cuda.max_memory_allocated(m.device)
-        if index is None and not sharded:
+        if segmented and not sharded:
             # what each segment's genome codes and index hold on the card
             done["segment_device_bytes"] = [
                 sum(t.nbytes for t in s.state.values()

@@ -232,7 +232,10 @@ def build_csr_index(codes: np.ndarray, m: int):
     positions = np.empty(len(codes), np.int32)
     n = lib.build_csr_index(codes.ctypes.data, len(codes), m,
                             bucket_start.ctypes.data, positions.ctypes.data)
-    return bucket_start, positions[:n].copy()
+    # shrink in place: copying the valid prefix out would hold the
+    # positions twice at the build's peak
+    positions.resize(n, refcheck=False)
+    return bucket_start, positions
 
 
 def scatter_coverage(coverage: np.ndarray, pos: np.ndarray, rl: np.ndarray,

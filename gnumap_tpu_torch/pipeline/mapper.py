@@ -59,8 +59,11 @@ from gnumap_tpu_torch.io import sam as sam_io
 from gnumap_tpu_torch.io.fastq import ReadBatch
 from gnumap_tpu_torch.oracle import oracle
 from gnumap_tpu_torch.align import nw_band, nw_full, nw_pure, nw_ref, nw_tb
+from gnumap_tpu_torch.pipeline.staging import StagingRing
 
 SENTINEL = np.iinfo(np.int32).max
+# batches map_stream keeps in flight behind the one it finishes
+STREAM_DEPTH = 3
 I32 = torch.int32
 
 
@@ -730,11 +733,17 @@ class TorchMapper:
                              "mer_size <= 15 (the CSR pair's base-3 table "
                              "supports up to 18)")
         self.genome = genome
-        self.index = index
         self.cfg = cfg
         S_plus, S_minus = scoring.matrices_for_mode(cfg)
         self.S_plus_np, self.S_minus_np = S_plus, S_minus
+        # the index lives on the device only: no path reads a host copy
+        # after the upload (on the CPU the state shares the index's arrays)
         self.state = device_state(genome, index, cfg, self.device)
+        # staging for map_stream's window: STREAM_DEPTH batches in flight
+        # and the one being finished; a slot of its own for the capacity-
+        # overflow fallback, which stages from inside a finish
+        self._ring = StagingRing(self.device, STREAM_DEPTH + 1)
+        self._spare = StagingRing(self.device, 1)
         if accumulate == "device":
             self.reset_accumulators()
 
@@ -879,17 +888,20 @@ class TorchMapper:
         a checkpoint sees exactly ``batches_done`` batches: a submitted
         batch in flight has not touched them, and a resume replays it
         without double counting."""
-        lens = self._to_device(np.asarray(batch.lens, np.int32))
+        slot = self._ring.acquire()
+        lens = slot.upload("lens", np.asarray(batch.lens, np.int32))
         if batch.pwm_arr is None:
             out = self._device_map_acc_q(
-                self._to_device(pack_reads(batch.codes, batch.quals)), lens)
+                slot.upload("packed", pack_reads(batch.codes, batch.quals)),
+                lens)
         else:
             out = self._device_map_acc(
-                self._to_device(np.asarray(batch.codes, np.int8)),
-                self._to_device(np.asarray(batch.pwm_arr, np.int32)), lens)
+                slot.upload("codes", np.asarray(batch.codes, np.int8)),
+                slot.upload("pwm", np.asarray(batch.pwm_arr, np.int32)),
+                lens)
         blob, rows, nvk, pwm2 = out
-        return (rows, pwm2, self._fetch(nvk),
-                self._fetch(blob) if self.cfg.sam_out else None)
+        return (rows, pwm2, slot.fetch("nvk", nvk),
+                slot.fetch("blob", blob) if self.cfg.sam_out else None)
 
     def finish_acc(self, batch: ReadBatch, dev_out,
                    stats: Optional[BatchStats] = None
@@ -947,10 +959,7 @@ class TorchMapper:
             "device-accumulation capacity overflow (n_keep=%d > H=%d or "
             "n_indel=%d > K=%d): exact host-path fallback for this batch",
             n_keep, H, n_indel, max(64, H // 32))
-        out = self.finish_host(batch, self._fetch(self._device_map_packed(
-            self._to_device(np.asarray(batch.codes, np.int8)),
-            self._to_device(np.asarray(batch.pwm_q, np.int32)),
-            self._to_device(np.asarray(batch.lens, np.int32)))), None)
+        out = self.finish_host(batch, self._remap_packed(batch), None)
         t1 = time.perf_counter()
         cov, tal = self.fetch_accumulators()
         _scatter_coverage(cov, [(h.pos, h.ref_len, h.weight)
@@ -974,47 +983,42 @@ class TorchMapper:
         max_sc = blob[:, 2 * C]
         return cands, cands != SENTINEL, scores, max_sc
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            t = t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
-    def _fetch(self, blob: torch.Tensor):
-        """Start the blob's copy back: on a card into pinned memory with
-        non_blocking, and an event marks its end."""
-        if self.device.type != "cuda":
-            return blob, None
-        host = torch.empty(blob.shape, dtype=blob.dtype, pin_memory=True)
-        host.copy_(blob, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
+    def _remap_packed(self, batch: ReadBatch):
+        """The capacity-overflow fallback's device program: the batch's
+        [cands | scores | max_sc] blob, staged in a slot of its own and on
+        its way back (the pair finish_host takes)."""
+        slot = self._spare.acquire()
+        return slot.fetch("blob", self._device_map_packed(
+            slot.upload("codes", np.asarray(batch.codes, np.int8)),
+            slot.upload("pwm", np.asarray(batch.pwm_q, np.int32)),
+            slot.upload("lens", np.asarray(batch.lens, np.int32))))
 
     # ------------------------------------------------------------------
     # Host finishing
     # ------------------------------------------------------------------
     def submit(self, batch: ReadBatch):
         """Enqueue the device program and the blob's copy back; pair with
-        finish().  On a card the H2D copies come from pinned memory with
-        non_blocking, the D2H copy lands in pinned memory, and an event
-        marks its end, so map_stream overlaps device work with the host
-        finish of earlier batches.  Quality-derived batches (pwm_arr None)
-        ship quals and rebuild the PWM on the device."""
+        finish().  The copies go through a slot of the mapper's staging
+        ring (pipeline/staging.py): on a card the H2D copies leave pinned
+        buffers with non_blocking, the D2H copy lands in a pinned buffer,
+        and an event marks its end, so map_stream overlaps device work with
+        the host finish of earlier batches.  Quality-derived batches
+        (pwm_arr None) ship quals and rebuild the PWM on the device."""
         if self.accumulate == "device":
             return self._submit_acc(batch)
         dev = self.finish_impl == "device"
-        lens = self._to_device(np.asarray(batch.lens, np.int32))
+        slot = self._ring.acquire()
+        lens = slot.upload("lens", np.asarray(batch.lens, np.int32))
         if batch.pwm_arr is None:
             fn = self._device_map_tb_q if dev else self._device_map_packed_q
-            blob = fn(self._to_device(pack_reads(batch.codes, batch.quals)),
-                      lens)
+            blob = fn(slot.upload("packed",
+                                  pack_reads(batch.codes, batch.quals)), lens)
         else:
             fn = self._device_map_tb if dev else self._device_map_packed
-            blob = fn(self._to_device(np.asarray(batch.codes, np.int8)),
-                      self._to_device(np.asarray(batch.pwm_arr, np.int32)),
+            blob = fn(slot.upload("codes", np.asarray(batch.codes, np.int8)),
+                      slot.upload("pwm", np.asarray(batch.pwm_arr, np.int32)),
                       lens)
-        return self._fetch(blob)
+        return slot.fetch("blob", blob)
 
     def finish(self, batch: ReadBatch, dev_out,
                stats: Optional[BatchStats] = None) -> List[List[ReadHit]]:
@@ -1065,12 +1069,7 @@ class TorchMapper:
                 "device-finish hit-capacity overflow "
                 "(n_keep=%d n_indel=%d, H=%d K=%d): host-path fallback",
                 int(blob[-3]), int(blob[-1]), H, max(64, H // 32))
-            return self.finish_host(batch, self._fetch(
-                self._device_map_packed(
-                    self._to_device(np.asarray(batch.codes, np.int8)),
-                    self._to_device(np.asarray(batch.pwm_q, np.int32)),
-                    self._to_device(np.asarray(batch.lens, np.int32)))),
-                stats)
+            return self.finish_host(batch, self._remap_packed(batch), stats)
         out, _, n_valid = decoded
         if stats is not None:
             _update_stats(stats, cfg, batch, out, n_valid, t1 - t0,
@@ -1149,7 +1148,7 @@ def map_stream(mapper: TorchMapper, batches: Iterable[ReadBatch],
         elif collect_sam:
             sam_lines.append(line)
 
-    def results(depth: int = 3):
+    def results(depth: int = STREAM_DEPTH):
         """Keep ``depth`` batches in flight: device work overlaps host
         finishing/parsing.  A mapper without ``submit`` (DistMapper, whose
         collectives make each batch synchronous) maps one batch at a time."""
@@ -1159,14 +1158,19 @@ def map_stream(mapper: TorchMapper, batches: Iterable[ReadBatch],
                 yield batch, mapper.map_batch(batch, stats)
             return
         q = deque()
+
+        def finish_oldest():
+            # the finished batch's staging is dropped here, before the
+            # yield, so that its slot is free for the next submit
+            pb, pf = q.popleft()
+            return pb, mapper.finish(pb, pf, stats)
+
         for batch in batches:
             q.append((batch, mapper.submit(batch)))
             if len(q) > depth:
-                pb, pf = q.popleft()
-                yield pb, mapper.finish(pb, pf, stats)
+                yield finish_oldest()
         while q:
-            pb, pf = q.popleft()
-            yield pb, mapper.finish(pb, pf, stats)
+            yield finish_oldest()
 
     # Native batch SAM formatter: one C call per batch, byte-identical to
     # the io/sam.py records.

@@ -14,7 +14,8 @@ the bisulfite seeding (seed_kmers_b3) and the mapper on each index kind and
 through GlobalSegmentedMapper, on the card and on the CPU; the reads x
 index mesh (dist/collectives.DistMapper) on the card, in a world of one
 rank on NCCL and of two ranks sharing the card over gloo, against
-TorchMapper on the card.
+TorchMapper on the card; the staging ring (pipeline/staging.py) behind slow
+device work.
 """
 
 import numpy as np
@@ -580,6 +581,62 @@ def test_mapper_on_card_equals_cpu(finish_impl):
                        finish_impl=finish_impl).map_batch(batch)
     assert [[vars(h) for h in x] for x in a] == \
         [[vars(h) for h in x] for x in b]
+
+
+def test_staging_ring_waits_for_copies_behind_slow_work():
+    """Device work queued before each upload (a spin of about 20 ms) must
+    not let the staging ring overwrite a buffer whose non_blocking copy has
+    not run: (a) a ring of two slots, uploads whose results are dropped at
+    once (so each slot is free by its references but not by its copy):
+    every device tensor holds its own upload; (b) map_stream with the spin
+    before each batch's submit gives the SAM records and coverage of a run
+    with torch.cuda.synchronize() after every batch."""
+    from gnumap_tpu_torch.pipeline.staging import StagingRing
+    dev = _card()
+    ring = StagingRing(dev, 2)
+    outs = []
+    for i in range(6):
+        torch.cuda._sleep(40_000_000)
+        slot = ring.acquire()
+        outs.append(slot.upload("x", np.full(1 << 20, i, np.int32)))
+    torch.cuda.synchronize()
+    assert [int(o.min()) for o in outs] == [int(o.max()) for o in outs] \
+        == list(range(6))
+    assert ring.allocs == 2
+
+    cfg = MapperConfig(mer_size=10, seed_jump=5, batch_size=64,
+                       max_read_len=104, max_candidates=32)
+    g = sim.random_genome(200_000, seed=3, repeat_frac=0.02)
+    gen = builder.Genome.from_contigs([("ref_sim", g)])
+    idx = builder.build_index(gen, cfg)
+    reads = sim.simulate_reads(g, 1024, 100, seed=4, sub_rate=0.01,
+                               indel_rate=0.2, contig="ref_sim")
+    recs = [io_fastq.ReadRecord(
+        r.name, packing.encode(r.seq), None,
+        (np.frombuffer(r.qual.encode(), np.uint8) - 33).astype(np.int16))
+        for r in reads]
+    out = {}
+    for mode in ("slow", "sync"):
+        m = tm.TorchMapper(gen, idx, cfg, device=dev)
+        submit = m.submit
+
+        def slow_submit(batch):
+            torch.cuda._sleep(40_000_000)
+            return submit(batch)
+
+        def sync_submit(batch):
+            r = submit(batch)
+            torch.cuda.synchronize()
+            return r
+
+        m.submit = slow_submit if mode == "slow" else sync_submit
+        res = tm.map_stream(m, io_fastq.batch_reads(iter(recs), cfg))
+        out[mode] = ("".join(res.sam_lines), res.coverage,
+                     res.stats.n_mapped)
+        assert m._ring.allocs == 3 * (tm.STREAM_DEPTH + 1)
+    assert out["slow"][0] == out["sync"][0]
+    assert np.array_equal(out["slow"][1], out["sync"][1])
+    assert out["slow"][2] == out["sync"][2] > 1000
 
 
 def test_fm_hits_and_seed_kmers_b3_on_card_equal_cpu():

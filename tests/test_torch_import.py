@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: every module of its package, its CLI, the
-chip smoke script and its scale tools (tools/torch_scale_run.py,
-tools/torch_scale3g.py) import with jax and the JAX package (gnumap_tpu)
-both blocked from import, and none of their sources names either."""
+chip smoke script, its scale tools (tools/torch_scale_run.py,
+tools/torch_scale3g.py) and its host-memory probe (tools/torch_host_mem.py)
+import with jax and the JAX package (gnumap_tpu) both blocked from import,
+and none of their sources names either."""
 
 import glob
 import os
@@ -25,13 +26,13 @@ names = [m.name for m in pkgutil.walk_packages(gnumap_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-import tools.torch_scale_run, tools.torch_scale3g
+import tools.torch_scale_run, tools.torch_scale3g, tools.torch_host_mem
 for want in ("config", "core.packing", "core.pwm", "align.scoring",
              "native.lib", "index.builder", "index.store", "io.fastq",
              "io.sam", "io.sgr", "oracle.oracle", "posterior.snp",
              "utils.sim", "pipeline.mapper", "cli.main", "index.fm",
              "dist.segments", "dist.mesh", "dist.collectives",
-             "dist.multihost", "utils.profiling"):
+             "dist.multihost", "utils.profiling", "pipeline.staging"):
     assert "gnumap_tpu_torch." + want in names, want
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "gnumap_tpu", "bench"))
@@ -48,13 +49,15 @@ def test_port_imports_without_jax():
 
 
 def test_port_sources_name_no_jax_package():
-    """No source of the port, of chip_smoke.py or of the port's scale tools
-    imports gnumap_tpu, jax or the JAX package's bench.py."""
+    """No source of the port, of chip_smoke.py or of the port's scale and
+    host-memory tools imports gnumap_tpu, jax or the JAX package's
+    bench.py."""
     files = glob.glob(os.path.join(ROOT, "gnumap_tpu_torch", "**", "*.py"),
                       recursive=True) + [
         os.path.join(ROOT, p) for p in ("chip_smoke.py",
                                         "tools/torch_scale_run.py",
-                                        "tools/torch_scale3g.py")]
+                                        "tools/torch_scale3g.py",
+                                        "tools/torch_host_mem.py")]
     assert len(files) > 30
     pat = re.compile(r"^\s*(?:import|from)\s+(?:gnumap_tpu|jax|jaxlib|bench)"
                      r"(?:[.\s]|$)", re.M)
