@@ -149,6 +149,17 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              seconds and bytes a batch in the collectives and staged, peak
              device memory per rank.  Two ranks on one card are not a
              scaling figure.
+  bench      the port's benchmark driver, python -m gnumap_tpu_torch.bench
+             --config 2 --reference BENCH_r05.json, in a process of its
+             own: the headline config (16,384 reads, E.coli scale) with a
+             warm-up and 3 repeats, the kernel bit check on the card, the
+             per-stage device profile and the CPU baseline (a subprocess of
+             its own); fails unless it exits 0, its last line parses, the
+             bit check holds, accuracy >= 0.999, mapped and multi-mapped
+             equal config 2's in BENCH_r05.json, every profile key is
+             finite, the profile's stages sum to within 15% of the
+             mapper's own submit, and B1, B2 and B3 launched; its headline
+             line is printed on a line of its own
 map_bs, map_fm and map_seg print reads/s, the card's kernel and copy time of a warm
 repeat under torch.profiler (its wall, and so the idle share beside it,
 includes the profiler's own cost) and the peak device memory of their main
@@ -187,7 +198,7 @@ PHASES = ("device", "build", "kernel_b1", "kernel_b2", "kernel_b3",
           "kernel_b4", "kernel_b5", "host_mem", "map", "map_host",
           "map_indel", "parity", "golden", "map_ckpt", "map_unbanded",
           "map_acc", "map_multi", "map_cfg3", "map_bs", "map_fm", "map_seg",
-          "map_dist")
+          "map_dist", "bench")
 GENOME_LEN = 4_641_652
 N_READS = 16_384
 READ_LEN = 100
@@ -2587,6 +2598,58 @@ def map_dist(tmp, fa, fq, genome_str):
     return res, failures, b1
 
 
+def bench(tmp):
+    """The bench phase: python -m gnumap_tpu_torch.bench --config 2 in a
+    process of its own (its CPU baseline's cache in ``tmp``, so that the
+    baseline is measured in this run).  Returns (the headline line or None,
+    seconds, failures)."""
+    import math
+    from gnumap_tpu_torch import bench as bench_mod
+    ref_path = os.path.join(ROOT, "BENCH_r05.json")
+    want = bench_mod.reference_ladder(ref_path)[2]
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "gnumap_tpu_torch.bench", "--config", "2",
+         "--reference", ref_path], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, TMPDIR=tmp))
+    secs = time.perf_counter() - t0
+    try:
+        head = json.loads(r.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        return None, secs, [f"bench: rc {r.returncode}, no headline line: "
+                            f"{r.stderr[-2000:]}"]
+    fails = []
+    if r.returncode != 0:
+        fails.append(f"bench: rc {r.returncode} failed {head.get('failed')}"
+                     f" {r.stderr[-2000:]}")
+    if head["kernel_bitcheck"] is not True:
+        fails.append(f"bench: kernel_bitcheck "
+                     f"{head.get('kernel_bitcheck_detail')}")
+    if not head["accuracy"] >= 0.999:
+        fails.append(f"bench: accuracy {head['accuracy']}")
+    if (head["mapped"], head["multi_mapped"]) != (want["mapped"],
+                                                  want["multi_mapped"]):
+        fails.append(f"bench: mapped {head['mapped']} multi "
+                     f"{head['multi_mapped']}, BENCH_r05.json config 2 "
+                     f"{want['mapped']} {want['multi_mapped']}")
+    prof = head.get("profile") or {}
+    bad = [k for k in bench_mod.PROFILE_KEYS + ("sum_of_stages_ms",
+                                                "submit_ms")
+           if not (isinstance(prof.get(k), (int, float))
+                   and math.isfinite(prof[k]))]
+    if bad:
+        fails.append(f"bench: profile keys missing or not finite {bad}")
+    elif abs(prof["sum_of_stages_ms"] - prof["submit_ms"]) \
+            > 0.15 * prof["submit_ms"]:
+        fails.append(f"bench: stages sum to {prof['sum_of_stages_ms']} ms, "
+                     f"submit takes {prof['submit_ms']} ms")
+    launches = head.get("launches") or {}
+    for k in ("nw_band", "nw_pure", "nw_tb"):
+        if not launches.get(k, 0) > 0:
+            fails.append(f"bench: {k} never launched")
+    return head, secs, fails
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -3022,6 +3085,12 @@ def main(argv=None) -> int:
             if b1 is not None:
                 emit("map_dist_nw_band", **b1)
                 record("nw_band", b1, "nw_band at C = 16 on map_dist")
+        if "bench" in only:
+            head, secs, fails = bench(tmp)
+            if head is not None:
+                print(json.dumps(head), flush=True)
+            emit("bench", seconds=secs, failures=fails)
+            failures.extend(fails)
 
     if failures:
         raise RuntimeError("; ".join(failures))

@@ -326,7 +326,7 @@ def main(argv=None) -> int:
         resuming = bool(args.checkpoint and os.path.exists(args.checkpoint)
                         and os.path.exists(body_path))
         sam_bin = open(body_path, "r+b" if resuming else "wb")
-        sam_f = _io.TextIOWrapper(sam_bin, encoding="ascii", newline="")
+        sam_f = _io.TextIOWrapper(sam_bin, encoding="utf-8", newline="")
     elif cfg.sam_out and writer:
         resuming = bool(args.checkpoint and os.path.exists(args.checkpoint))
         sam_f = open(sam_path, "r+" if resuming and
@@ -348,33 +348,32 @@ def main(argv=None) -> int:
                 "device_s": round(s.device_s, 3),
                 "host_s": round(s.host_s, 3)}), file=sys.stderr)
         callbacks.append(_vcb)
-    _gp_rows: list = []
     if sam_bin is not None and genome_partitioned:
         # per-RECORD index rows (batch, read, key) aligned with the shard
-        # lines; host 0 interleaves them (multihost.merge_sam_shards_gp)
+        # lines; host 0 interleaves them (multihost.merge_sam_shards_gp).
+        # Each batch's rows are appended as the batch completes, so no
+        # host holds its rows for the run; a resume keeps the rows of the
+        # checkpointed batches
         _, idx_path = multihost.shard_paths(args.output, args.host_id)
-        if args.checkpoint and os.path.exists(args.checkpoint):
-            st = ckpt.load(args.checkpoint)
-            if st is not None and os.path.exists(idx_path):
-                with open(idx_path) as f:
-                    for line in f.read().splitlines():
-                        row = tuple(json.loads(line))
-                        if row[0] < st.batches_done:
-                            _gp_rows.append(row)
-        if args.checkpoint:
-            # truncate to the kept rows once; per-batch writes APPEND
-            multihost.write_shard_index(idx_path, _gp_rows)
+        st = (ckpt.load(args.checkpoint)
+              if args.checkpoint and os.path.exists(args.checkpoint)
+              else None)
+        if st is not None and os.path.exists(idx_path):
+            with open(idx_path) as f, open(idx_path + ".tmp", "w") as g:
+                for line in f:
+                    if json.loads(line)[0] < st.batches_done:
+                        g.write(line)
+            os.replace(idx_path + ".tmp", idx_path)
+        else:
+            multihost.write_shard_index(idx_path, [])
 
         def _gp_cb(idx, s):
             gp = getattr(m, "gp_sam", None)
-            new_rows = [(idx - 1, rd, key)
-                        for rd, key in (gp["records"] if gp else [])]
-            _gp_rows.extend(new_rows)
-            if args.checkpoint and new_rows:
-                sam_f.flush()
-                with open(idx_path, "a") as f:
-                    for row in new_rows:
-                        f.write(json.dumps(row) + "\n")
+            sam_f.flush()
+            with open(idx_path, "a") as f:
+                for rd, key in (gp["records"] if gp else []):
+                    f.write(json.dumps((idx - 1, rd, key)) + "\n")
+                if args.checkpoint:
                     f.flush()
                     os.fsync(f.fileno())
         callbacks.append(_gp_cb)
@@ -461,9 +460,10 @@ def main(argv=None) -> int:
             res.tallies = multihost.allreduce_f64(res.tallies)
         if sam_f:
             sam_f.close()
-            _, idx_path = multihost.shard_paths(args.output, args.host_id)
-            multihost.write_shard_index(
-                idx_path, _gp_rows if genome_partitioned else spans)
+            if not genome_partitioned:
+                _, idx_path = multihost.shard_paths(args.output,
+                                                    args.host_id)
+                multihost.write_shard_index(idx_path, spans)
         multihost.barrier("gnumap_sam_shards")
         if sam_f and args.host_id == 0:
             import io as _io

@@ -24,12 +24,16 @@ the genome, maps its 1/R of the reads, coverage arrays ``MPI_Reduce`` to rank
 
 The host-only functions (``strided``, ``_next_record_start``,
 ``fastq_ranges``, ``shard_paths``, ``write_shard_index``,
-``merge_sam_shards_gp``, ``merge_sam_shards``) are copies of the JAX
-package's, held to them by tests/test_torch_hostlib.py.
+``merge_sam_shards``) are copies of the JAX package's, held to them by
+tests/test_torch_hostlib.py.  ``merge_sam_shards_gp`` is the port's own: a
+streaming merge that refuses shards out of order, byte-equal to the JAX
+merge on shards in the writer's order (the same tests).
 """
 
 from __future__ import annotations
 
+import heapq
+import itertools
 import json
 import os
 from typing import Iterable, Iterator, List, Tuple
@@ -174,6 +178,30 @@ def write_shard_index(idx_path: str,
             f.write(json.dumps(row) + "\n")
 
 
+def _gp_shard_records(output: str, h: int):
+    """((batch, read, key), h, line) for each record of host h's
+    genome-partitioned shard, in file order: the shard and its index are
+    read line by line, together.  Raises RuntimeError where the two differ
+    in length or a row does not rise strictly above the one before it
+    (the writer emits them rising, and the merge relies on it)."""
+    body, idx = shard_paths(output, h)
+    prev = None
+    with open(body, "rb") as fb, open(idx) as fi:
+        for n, (line, meta) in enumerate(
+                itertools.zip_longest(fb, fi), start=1):
+            if line is None or meta is None:
+                raise RuntimeError(
+                    f"gp shard {h}: records and index rows differ in "
+                    f"number at line {n}")
+            row = tuple(json.loads(meta))
+            if prev is not None and row <= prev:
+                raise RuntimeError(
+                    f"gp shard {h}: index row {list(row)} at line {n} does "
+                    f"not rise above {list(prev)}")
+            prev = row
+            yield row, h, line
+
+
 def merge_sam_shards_gp(output: str, num_hosts: int, header: str) -> None:
     """Host-0 SAM merge for the GENOME-PARTITIONED mode: a read's records
     are split across hosts (host h owns segments h, h+R, ...), so the
@@ -183,29 +211,14 @@ def merge_sam_shards_gp(output: str, num_hosts: int, header: str) -> None:
     with the shard's lines; coordinates partition across hosts, so keys
     never tie and the merged order is exactly the single-process
     segmented emission order (read-ascending, hits by (pos, strand)).
-    Whole shards are held in memory — fine for the RAM-bound mode this
-    serves (records ~ reads, and reads already fit every host's RAM by
-    assumption)."""
-    per_host_lines = []
-    rows = []
-    for h in range(num_hosts):
-        body, idx = shard_paths(output, h)
-        with open(body, "rb") as f:
-            lines = f.read().splitlines(keepends=True)
-        with open(idx) as f:
-            meta = [json.loads(line) for line in f]
-        if len(lines) != len(meta):
-            raise RuntimeError(
-                f"gp shard {h}: {len(lines)} records vs "
-                f"{len(meta)} index rows")
-        for i, (bt, rd, key) in enumerate(meta):
-            rows.append((bt, rd, key, h, i))
-        per_host_lines.append(lines)
-    rows.sort()
+    A streaming k-way merge: one record of each host in memory at a time;
+    a host whose rows do not rise strictly raises RuntimeError (naming the
+    host and line) rather than emit out of order."""
     with open(output + ".sam", "wb") as out:
         out.write(header.encode())
-        for bt, rd, key, h, i in rows:
-            out.write(per_host_lines[h][i])
+        for _, _, line in heapq.merge(*(_gp_shard_records(output, h)
+                                        for h in range(num_hosts))):
+            out.write(line)
     for h in range(num_hosts):
         body, idx = shard_paths(output, h)
         os.remove(body)

@@ -34,7 +34,7 @@ def write_sgr(f: IO[str], genome: Genome, coverage: np.ndarray,
                 sel = nz[lo:lo + CH]
                 f.write(native_lib.format_sgr(
                     name, sel.astype(np.int64) + 1,
-                    cov[sel]).decode("ascii"))
+                    cov[sel]).decode("utf-8"))
             continue
         for p in nz:
             f.write(f"{name}\t{int(p) + 1}\t{cov[p]:.4f}\n")

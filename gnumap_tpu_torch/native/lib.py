@@ -281,25 +281,30 @@ def scatter_tallies(tallies: np.ndarray, pwm_q: np.ndarray,
         tallies.ctypes.data, tallies.shape[0], float(pwm_scale))
 
 
-def format_sam_batch(codes, quals, lens, names, rnames,
-                     hit_read, hit_flag, hit_rname, hit_pos, hit_mapq,
-                     cigars, hit_score, hit_xs, hit_weight,
-                     unmapped, skip=None) -> bytes:
-    """One batch of SAM records as bytes, byte-identical to the io/sam.py
-    per-record formatting (tests/test_native.py).  ``cigars``: list[str],
-    "" = pure match of the read's full length; ``skip``: optional bool[B]
-    to emit nothing for a read (genome-partitioned multi-host mode)."""
-    lib = get_lib()
+def _utf8_offsets(strings):
+    """(UTF-8 bytes of the strings joined, int64 byte offsets [n + 1]):
+    offsets count bytes, so a name after a non-ASCII one starts where the
+    formatter looks for it."""
+    enc = [x.encode("utf-8") for x in strings]
+    off = np.zeros(len(enc) + 1, np.int64)
+    if enc:
+        np.cumsum([len(e) for e in enc], out=off[1:])
+    return b"".join(enc), off
+
+
+def _sam_batch_args(codes, quals, lens, names, rnames,
+                    hit_read, hit_flag, hit_rname, hit_pos, hit_mapq,
+                    cigars, hit_score, hit_xs, hit_weight,
+                    unmapped, skip=None):
+    """(arrays the C formatter reads, in its argument order without the
+    output buffer, capacity that bounds the output).  The arrays must stay
+    referenced while the formatter runs."""
     codes = np.ascontiguousarray(codes, np.int8)
     quals = np.ascontiguousarray(quals, np.int16)
     lens = np.ascontiguousarray(lens, np.int32)
     B, Lmax = codes.shape
-    name_b = "".join(names).encode("ascii")
-    name_off = np.zeros(B + 1, np.int64)
-    np.cumsum([len(n) for n in names], out=name_off[1:])
-    rname_b = "".join(rnames).encode("ascii")
-    rname_off = np.zeros(len(rnames) + 1, np.int64)
-    np.cumsum([len(n) for n in rnames], out=rname_off[1:])
+    name_b, name_off = _utf8_offsets(names)
+    rname_b, rname_off = _utf8_offsets(rnames)
     Nh = len(hit_read)
     hit_read = np.ascontiguousarray(hit_read, np.int32)
     hit_flag = np.ascontiguousarray(hit_flag, np.int32)
@@ -309,32 +314,46 @@ def format_sam_batch(codes, quals, lens, names, rnames,
     hit_score = np.ascontiguousarray(hit_score, np.int32)
     hit_xs = np.ascontiguousarray(hit_xs, np.float64)
     hit_weight = np.ascontiguousarray(hit_weight, np.float64)
-    cigar_b = "".join(cigars).encode("ascii")
-    cigar_off = np.zeros(Nh + 1, np.int64)
-    if Nh:
-        np.cumsum([len(c) for c in cigars], out=cigar_off[1:])
+    cigar_b, cigar_off = _utf8_offsets(cigars)
     unmapped = np.ascontiguousarray(unmapped, np.uint8)
     skip_arr = (np.ascontiguousarray(skip, np.uint8)
                 if skip is not None else None)
     # capacity: every HIT repeats its read's qname and may use the
     # longest contig name (multi-mapped reads with long headers overflowed
-    # the old per-read estimate)
+    # the old per-read estimate); all in bytes
     name_lens = np.diff(name_off)
     max_rn = int(np.diff(rname_off).max()) if len(rnames) else 0
     cap = ((int(name_lens[hit_read].sum()) if Nh else 0)
            + Nh * (max_rn + 2 * Lmax + 128) + len(cigar_b)
            + int(name_off[-1]) + B * (2 * Lmax + 64) + 1024)
+    args = (codes, quals, lens, B, Lmax, name_b, name_off, rname_b,
+            rname_off, hit_read, hit_flag, hit_rname, hit_pos, hit_mapq,
+            cigar_b, cigar_off, hit_score, hit_xs, hit_weight, Nh, unmapped,
+            skip_arr)
+    return args, cap
+
+
+def _c_args(args):
+    """numpy arrays -> their data pointers (None stays NULL)."""
+    return [a.ctypes.data if isinstance(a, np.ndarray) else a for a in args]
+
+
+def format_sam_batch(codes, quals, lens, names, rnames,
+                     hit_read, hit_flag, hit_rname, hit_pos, hit_mapq,
+                     cigars, hit_score, hit_xs, hit_weight,
+                     unmapped, skip=None) -> bytes:
+    """One batch of SAM records as UTF-8 bytes, byte-identical to the
+    io/sam.py per-record formatting encoded as UTF-8 (tests/test_native.py;
+    names and contig names may be any text).  ``cigars``: list[str], "" =
+    pure match of the read's full length; ``skip``: optional bool[B] to
+    emit nothing for a read (genome-partitioned multi-host mode).  Raises
+    RuntimeError if the output would exceed the capacity bound."""
+    args, cap = _sam_batch_args(
+        codes, quals, lens, names, rnames, hit_read, hit_flag, hit_rname,
+        hit_pos, hit_mapq, cigars, hit_score, hit_xs, hit_weight, unmapped,
+        skip)
     out = ctypes.create_string_buffer(cap)
-    n = lib.format_sam_batch(
-        codes.ctypes.data, quals.ctypes.data, lens.ctypes.data, B, Lmax,
-        name_b, name_off.ctypes.data, rname_b, rname_off.ctypes.data,
-        hit_read.ctypes.data, hit_flag.ctypes.data, hit_rname.ctypes.data,
-        hit_pos.ctypes.data, hit_mapq.ctypes.data,
-        cigar_b, cigar_off.ctypes.data,
-        hit_score.ctypes.data, hit_xs.ctypes.data, hit_weight.ctypes.data,
-        Nh, unmapped.ctypes.data,
-        skip_arr.ctypes.data if skip_arr is not None else None,
-        out, cap)
+    n = get_lib().format_sam_batch(*_c_args(args), out, cap)
     if n < 0:
         raise RuntimeError("format_sam_batch: output capacity exceeded")
     return out.raw[:n]
@@ -342,11 +361,11 @@ def format_sam_batch(codes, quals, lens, names, rnames,
 
 def format_sgr(name: str, pos: np.ndarray, val: np.ndarray) -> bytes:
     """SGR lines for one contig (1-based positions), byte-identical to the
-    io/sgr.py per-line f-string path."""
+    io/sgr.py per-line f-string path encoded as UTF-8."""
     lib = get_lib()
     pos = np.ascontiguousarray(pos, np.int64)
     val = np.ascontiguousarray(val, np.float64)
-    nb = name.encode("ascii")
+    nb = name.encode("utf-8")
     cap = len(pos) * (len(nb) + 48) + 64
     out = ctypes.create_string_buffer(cap)
     n = lib.format_sgr(nb, len(nb), pos.ctypes.data, val.ctypes.data,

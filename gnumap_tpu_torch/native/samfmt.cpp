@@ -2,13 +2,15 @@
 //
 // The per-record Python path (pipeline/mapper.py map_stream: per-read
 // decode + f-string assembly + per-hit locate) was the remaining host cost
-// of runs with SAM output on.  This formats one BATCH of records in a single call: the
-// caller passes vectorized per-hit arrays (read index, flag, contig,
-// position, mapq, cigar, score, weight) and per-read (codes, quals,
-// names); output is one contiguous ASCII buffer, byte-identical to
-// io/sam.py record()/unmapped_record() (printf "%.4f"/"%.6f" and Python's
-// format(x, '.4f') are both correctly rounded, so the float fields agree
-// bit-for-bit; property-tested in tests/test_native.py).
+// of runs with SAM output on.  This formats one BATCH of records in a
+// single call: the caller passes vectorized per-hit arrays (read index,
+// flag, contig, position, mapq, cigar, score, weight) and per-read (codes,
+// quals, names; names, contig names and cigars as UTF-8 bytes with byte
+// offsets); output is one contiguous buffer, byte-identical to the UTF-8
+// encoding of io/sam.py record()/unmapped_record() (printf "%.4f"/"%.6f"
+// and Python's format(x, '.4f') are both correctly rounded, so the float
+// fields agree bit-for-bit; property-tested in tests/test_native.py).  No
+// write passes out_cap: every snprintf's return is checked.
 
 #include <cstdint>
 #include <cstdio>
@@ -146,8 +148,11 @@ int64_t format_sam_batch(
             } else {
                 p = put_u(p, hit_score[h]);
             }
-            p += std::snprintf(p, (size_t)(end - p), "\tXS:f:%.4f\tXP:f:%.6f\n",
-                               hit_xs[h], hit_weight[h]);
+            const int r = std::snprintf(p, (size_t)(end - p),
+                                        "\tXS:f:%.4f\tXP:f:%.6f\n",
+                                        hit_xs[h], hit_weight[h]);
+            if (r < 0 || r >= end - p) return -1;
+            p += r;
         }
     }
     return p - out;
@@ -170,7 +175,9 @@ int64_t format_sgr(const char* name, int64_t name_n,
         p = put_str(p, name, name_n);
         *p++ = '\t';
         p = put_u(p, pos[i]);
-        p += std::snprintf(p, (size_t)(end - p), "\t%.4f\n", val[i]);
+        const int r = std::snprintf(p, (size_t)(end - p), "\t%.4f\n", val[i]);
+        if (r < 0 || r >= end - p) return -1;
+        p += r;
     }
     return p - out;
 }

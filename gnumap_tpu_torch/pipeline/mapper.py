@@ -345,11 +345,12 @@ def _compact(mask, n_out: int, values):
     return dst.scatter_(0, slot, values)[:n_out], k
 
 
-def device_hit_rows(cfg: MapperConfig, cands, valid, scores, max_sc,
-                    emis2_t, lens2, genome) -> dict:
-    """Retention threshold + winner compaction + device traceback: the
-    per-hit rows of the device finish (gnumap_tpu/pipeline/mapper.py
-    device_hit_rows).  emis2_t int32[B2, 5, L] contiguous."""
+def device_retain(cfg: MapperConfig, cands, valid, scores, max_sc,
+                  emis2_t, lens2) -> dict:
+    """Stage (a) of device_hit_rows: the exact retention threshold and the
+    winner compaction into H = hit_capacity * B2 hit slots, in flat
+    (row, candidate) order; -1 / SENTINEL / 0 in the empty slots.  The
+    winners' emission tables (emis_h, int32[H, 5, L]) are gathered here."""
     B2, C = cands.shape
     H = cfg.hit_capacity * B2
     if B2 * C >= (1 << 21):
@@ -363,35 +364,62 @@ def device_hit_rows(cfg: MapperConfig, cands, valid, scores, max_sc,
     flat_idx = torch.arange(B2 * C, dtype=I32, device=dev)
     hit_flat, k = _compact(keep, H, flat_idx + 1)
     hit_flat = hit_flat - 1                      # -1 = empty slot
-    n_keep = k[-1] + 1
     valid_h = hit_flat >= 0
     safe = torch.where(valid_h, hit_flat, 0).long()
     row_h = safe // C
-    cand_h = torch.where(valid_h, cands.reshape(-1)[safe], SENTINEL)
-    score_h = torch.where(valid_h, scores.reshape(-1)[safe], 0)
-    len_h = torch.where(valid_h, lens2[row_h], 0)
-    emis_h = emis2_t[row_h]
+    return dict(valid_h=valid_h, hit_flat=hit_flat, row_h=row_h,
+                cand_h=torch.where(valid_h, cands.reshape(-1)[safe],
+                                   SENTINEL),
+                score_h=torch.where(valid_h, scores.reshape(-1)[safe], 0),
+                len_h=torch.where(valid_h, lens2[row_h], 0),
+                emis_h=emis2_t[row_h], n_keep=k[-1] + 1,
+                n_valid=valid.sum(dtype=I32))
+
+
+def _tb_kw(cfg: MapperConfig) -> dict:
+    return dict(L=cfg.max_read_len, W=cfg.window_width(), slack=cfg.gap_slack,
+                open_q=cfg.gap_open_q(), ext_q=cfg.gap_extend_q())
+
+
+def device_pure(cfg: MapperConfig, rows: dict, genome):
+    """Stage (b) of device_hit_rows: [FROZEN v6] B2 (csrc/nw_pure.cu)
+    proves the winners that are all-M pure, with their j_final:
+    (pure bool[H], jf_pure int32[H]).  None when the traceback is not
+    split (no band, or a zero gap penalty): stage (c) then traces every
+    winner."""
     band = cfg.band()
-    open_q, ext_q = cfg.gap_open_q(), cfg.gap_extend_q()
-    kw = dict(L=cfg.max_read_len, W=cfg.window_width(), slack=cfg.gap_slack,
-              open_q=open_q, ext_q=ext_q)
-    split = (band is not None and open_q > 0 and ext_q > 0
-             and os.environ.get("GNUMAP_TB_SPLIT", "1") != "0")
-    if split:
-        # [FROZEN v6] traceback split: prove the all-M hits pure, then run
-        # the traceback only on the compacted gap-bearing remainder
-        pure, jf_pure = nw_pure.nw_pure_banded(
-            emis_h, cand_h, len_h, score_h, genome, boff=band[0],
-            bw=band[1], **kw)
-        need = valid_h & ~pure
+    if not (band is not None and cfg.gap_open_q() > 0
+            and cfg.gap_extend_q() > 0
+            and os.environ.get("GNUMAP_TB_SPLIT", "1") != "0"):
+        return None
+    return nw_pure.nw_pure_banded(
+        rows["emis_h"], rows["cand_h"], rows["len_h"], rows["score_h"],
+        genome, boff=band[0], bw=band[1], **_tb_kw(cfg))
+
+
+def device_traceback(cfg: MapperConfig, rows: dict, pure_jf, emis2_t,
+                     genome) -> dict:
+    """Stage (c) of device_hit_rows: the gap-bearing remainder (the
+    winners stage (b) did not prove pure) compacted to the front, B3
+    (csrc/nw_tb.cu) on it, its ops and j_final scattered back to their hit
+    slots; without stage (b) (``pure_jf`` None), B3 on every winner.
+    Returns ``rows`` with ops int16[H, Lp] and jfin int32[H]."""
+    valid_h, H = rows["valid_h"], rows["valid_h"].shape[0]
+    dev = valid_h.device
+    kw = dict(band=cfg.band(), **_tb_kw(cfg))
+    if pure_jf is None:
+        ops, jfin = nw_tb.nw_traceback(rows["emis_h"], rows["cand_h"],
+                                       rows["len_h"], genome, **kw)
+    else:
+        pure, jf_pure = pure_jf
         iota_h = torch.arange(H, dtype=I32, device=dev)
-        src2, kk2 = _compact(need, H, iota_h)
+        src2, kk2 = _compact(valid_h & ~pure, H, iota_h)
         live = iota_h < kk2[-1] + 1
         src2l = src2.long()
-        cand_c = torch.where(live, cand_h[src2l], SENTINEL)
-        len_c = torch.where(live, len_h[src2l], 0)
+        cand_c = torch.where(live, rows["cand_h"][src2l], SENTINEL)
+        len_c = torch.where(live, rows["len_h"][src2l], 0)
         ops_c, jfin_c = nw_tb.nw_traceback(
-            emis2_t[row_h[src2l]], cand_c, len_c, genome, band=band, **kw)
+            emis2_t[rows["row_h"][src2l]], cand_c, len_c, genome, **kw)
         tgt2 = torch.where(live, src2, H).long()
         ops = torch.zeros((H + 1, ops_c.shape[1]), dtype=ops_c.dtype,
                           device=dev)
@@ -399,13 +427,19 @@ def device_hit_rows(cfg: MapperConfig, cands, valid, scores, max_sc,
         jfin_tb = torch.zeros(H + 1, dtype=I32, device=dev)
         jfin_tb[tgt2] = jfin_c
         ops, jfin = ops[:H], torch.where(pure, jf_pure, jfin_tb[:H])
-    else:
-        ops, jfin = nw_tb.nw_traceback(emis_h, cand_h, len_h, genome,
-                                       band=band, **kw)
-    n_valid = valid.sum(dtype=I32)
-    return dict(valid_h=valid_h, hit_flat=hit_flat, row_h=row_h,
-                cand_h=cand_h, score_h=score_h, len_h=len_h, ops=ops,
-                jfin=jfin, n_keep=n_keep, n_valid=n_valid)
+    return dict(rows, ops=ops, jfin=jfin)
+
+
+def device_hit_rows(cfg: MapperConfig, cands, valid, scores, max_sc,
+                    emis2_t, lens2, genome) -> dict:
+    """Retention threshold + winner compaction + device traceback: the
+    per-hit rows of the device finish (gnumap_tpu/pipeline/mapper.py
+    device_hit_rows), as three stages that bench.profile_stages also times
+    as prefixes: device_retain, device_pure (B2), device_traceback (B3).
+    emis2_t int32[B2, 5, L] contiguous."""
+    rows = device_retain(cfg, cands, valid, scores, max_sc, emis2_t, lens2)
+    return device_traceback(cfg, rows, device_pure(cfg, rows, genome),
+                            emis2_t, genome)
 
 
 def device_tb_tail(cfg: MapperConfig, cands, valid, scores, max_sc,
@@ -753,6 +787,12 @@ class TorchMapper:
     def _seed(self, codes2):
         """Candidate anchors per (read x strand) from the seed index:
         int32[B2, C] + valid."""
+        cands = dedupe_cap(self._seed_hits(codes2), self.cfg.max_candidates)
+        return cands, cands != SENTINEL
+
+    def _seed_hits(self, codes2):
+        """Every seed's index hits, before the dedupe: int32[B2, S, caph]
+        anchors, SENTINEL at invalid slots (CSR gather or FM search)."""
         cfg, st = self.cfg, self.state
         off, m = st["offsets"], cfg.mer_size
         kind = self.index_kind
@@ -780,8 +820,7 @@ class TorchMapper:
             cand = seed_csr(cfg, st, codes2, lambda km, bad, sfx: csr_hits(
                 km, bad, st["bucket_start" + sfx], st["positions" + sfx],
                 off, cfg))
-        cands = dedupe_cap(cand, cfg.max_candidates)
-        return cands, cands != SENTINEL
+        return cand
 
     def _device_map(self, codes, pwm_q, lens):
         """Scoring of every (read-strand, candidate) pair: (cands, valid,
@@ -1329,7 +1368,7 @@ def format_sam_batch_native(gen: Genome, batch: ReadBatch, hits_per_read,
         np.asarray(flags, np.int32), ci.astype(np.int32),
         off.astype(np.int64), mq, cigs, sc,
         sc.astype(np.float64) / SCORE_ONE, w, unmapped, skip=skip)
-    return buf.decode("ascii")
+    return buf.decode("utf-8")
 
 
 def _scatter_coverage(coverage: np.ndarray,

@@ -15,7 +15,8 @@ through GlobalSegmentedMapper, on the card and on the CPU; the reads x
 index mesh (dist/collectives.DistMapper) on the card, in a world of one
 rank on NCCL and of two ranks sharing the card over gloo, against
 TorchMapper on the card; the staging ring (pipeline/staging.py) behind slow
-device work.
+device work; the benchmark driver's kernel bit check and stage profile
+(gnumap_tpu_torch/bench.py).
 """
 
 import numpy as np
@@ -747,3 +748,25 @@ def test_dist_mapper_on_card_equals_torch_mapper(world, backend, R, S,
         for run in runs:
             assert run["coords"] == (rank // S, rank % S)
             assert run["hits"] == want
+
+
+def test_bench_bitcheck_and_profile_on_card():
+    """gnumap_tpu_torch.bench on the card: kernel_bitcheck through the CUDA
+    kernels (B1 scores, B3 tracebacks, B2 pure verdicts held to the
+    oracle), and profile_stages on a bench config 2 batch at a small genome:
+    every stage finite, the stages telescoping to sum_of_stages_ms within
+    15% of the mapper's own submit, and B1, B2 and B3 launched."""
+    from gnumap_tpu_torch import bench
+    _card()
+    ok, n, detail = bench.kernel_bitcheck("cuda")
+    assert (ok, detail) == (True, "ok") and n > 300
+    w = bench.build_workload(2048, 200_000, 1024, config=2)
+    for mod in (nw_band, nw_pure, nw_tb):
+        mod.LAUNCHES = 0
+    prof = bench.profile_stages(*w, "cuda")
+    for k in bench.PROFILE_KEYS + ("sum_of_stages_ms", "submit_ms"):
+        assert np.isfinite(prof[k]), k
+    assert prof["batch"] == 1024
+    assert abs(prof["sum_of_stages_ms"] - prof["submit_ms"]) \
+        <= 0.15 * prof["submit_ms"], prof
+    assert min(nw_band.LAUNCHES, nw_pure.LAUNCHES, nw_tb.LAUNCHES) > 0

@@ -5,6 +5,13 @@ comparison is exact: equal constants, equal arrays (dtype, shape, values),
 equal strings and bytes.  Inputs come from a numpy seed and cross between
 the packages as numpy arrays and plain values only (test_torch_bridge.to_port
 rebuilds a dataclass from its fields).
+
+Two deliberate differences from the JAX package, each pinned here: the
+port's native SAM formatter takes names outside ASCII, as UTF-8 with byte
+offsets, where the JAX package's raises UnicodeEncodeError, and checks
+every snprintf (ROADMAP C.2); the port's genome-partitioned SAM merge
+streams and refuses shards out of order, byte-equal to the JAX merge on
+shards in the writer's order (ROADMAP C.3).
 """
 
 import dataclasses
@@ -589,6 +596,112 @@ def test_native_sam_formatter(native_libs):
          tnative.format_sgr("chrA", pos, val), "format_sgr")
 
 
+def _sam_inputs(rng, names, rnames, xs_scale=1.0):
+    """A batch for format_sam_batch: reads with N bases, forward and
+    reverse hits with pure and gapped CIGARs, an unmapped read last."""
+    B, L = len(names), 24
+    codes = rng.integers(0, 5, (B, L)).astype(np.int8)
+    quals = rng.integers(0, 41, (B, L)).astype(np.int16)
+    lens = rng.integers(10, L + 1, B).astype(np.int32)
+    hit_read = np.repeat(np.arange(B - 1), 2).astype(np.int32)
+    Nh = len(hit_read)
+    score = rng.integers(-50, 2 ** 20, Nh).astype(np.int32)
+    return dict(
+        codes=codes, quals=quals, lens=lens, names=names, rnames=rnames,
+        hit_read=hit_read,
+        hit_flag=np.array([0, 16, 272, 256] * B, np.int32)[:Nh],
+        hit_rname=(np.arange(Nh) % len(rnames)).astype(np.int32),
+        hit_pos=rng.integers(0, 10_000, Nh).astype(np.int64),
+        hit_mapq=rng.integers(0, 61, Nh).astype(np.int32),
+        cigars=["", "3M1I5M"] * (Nh // 2),
+        hit_score=score,
+        hit_xs=score / float(tconfig.SCORE_ONE) * xs_scale,
+        hit_weight=rng.random(Nh),
+        unmapped=(np.arange(B) == B - 1).astype(np.uint8))
+
+
+def _python_sam(a):
+    """The port's Python SAM writer (io/sam.py record / unmapped_record,
+    as map_stream calls them) on _sam_inputs' batch, as one str."""
+    out = []
+    for b, name in enumerate(a["names"]):
+        L = int(a["lens"][b])
+        c = a["codes"][b, :L]
+        seq = tpacking.decode(c)
+        qual = (a["quals"][b, :L] + 33).astype(np.uint8).tobytes().decode()
+        if a["unmapped"][b]:
+            out.append(tsam.unmapped_record(name, seq, qual))
+            continue
+        for h in np.nonzero(a["hit_read"] == b)[0]:
+            flag = int(a["hit_flag"][h])
+            oseq, oqual = ((tpacking.decode(tpacking.revcomp(c)), qual[::-1])
+                           if flag & 16 else (seq, qual))
+            out.append(tsam.record(
+                name, flag, a["rnames"][a["hit_rname"][h]],
+                int(a["hit_pos"][h]), int(a["hit_mapq"][h]),
+                a["cigars"][h] or f"{L}M", oseq, oqual,
+                int(a["hit_score"][h]), float(a["hit_weight"][h])))
+    return "".join(out)
+
+
+def test_native_sam_formatter_non_ascii_names(native_libs):
+    """ROADMAP C.2, a deliberate difference from the JAX package: a qname
+    or contig name outside ASCII is written by the port's native formatter
+    exactly as by its Python SAM writer, encoded as UTF-8 (name offsets
+    count bytes, so every name after the first non-ASCII one lands where it
+    belongs).  The JAX package's native path still encodes names as ASCII
+    and raises UnicodeEncodeError on such a batch."""
+    rng = np.random.default_rng(21)
+    names = ["r\u00e9ad_1", "read_2", "\u540d\u524d_3", "read_4/1",
+             "\u00fc_5"]
+    for rnames in (["chrA", "a_much_longer_contig_name"],
+                   ["chr\u00c4", "\u67d3\u8272\u4f53_2"]):
+        a = _sam_inputs(rng, names, rnames)
+        got = tnative.format_sam_batch(**a)
+        assert got == _python_sam(a).encode("utf-8")
+        assert got.count(b"\n") == len(a["hit_read"]) + 1
+        with pytest.raises(UnicodeEncodeError):
+            jnative.format_sam_batch(**a)
+    ascii_case = _sam_inputs(rng, ["a", "b", "c"], ["chrA"])
+    same(jnative.format_sam_batch(**ascii_case),
+         tnative.format_sam_batch(**ascii_case), "ASCII bytes unchanged")
+
+
+def test_native_sam_formatter_never_writes_past_its_capacity(native_libs):
+    """ROADMAP C.2: every snprintf's return is checked.  A record whose
+    XS / XP tail does not fit what is left of the buffer makes the
+    formatter return -1 (the wrapper raises) and leaves every byte past
+    the capacity untouched, at every capacity below the output's length;
+    with room to spare it writes the whole batch.  The same holds for the
+    SGR formatter."""
+    import ctypes
+    rng = np.random.default_rng(22)
+    # XS values of ~300 digits: the tail outgrows the per-record margin
+    a = _sam_inputs(rng, [f"q{k}" for k in range(10)], ["chrA"],
+                    xs_scale=1e300)
+    with pytest.raises(RuntimeError, match="capacity"):
+        tnative.format_sam_batch(**a)
+    args, _ = tnative._sam_batch_args(**a)
+    lib, guard = tnative.get_lib(), 512
+
+    def call(cap):
+        buf = ctypes.create_string_buffer(b"\x5a" * (cap + guard),
+                                          cap + guard)
+        n = lib.format_sam_batch(*tnative._c_args(args), buf, cap)
+        assert buf.raw[cap:] == b"\x5a" * guard, cap
+        return buf.raw[:n] if n >= 0 else None
+
+    want = call(1 << 16)
+    assert want.count(b"\n") == len(a["hit_read"]) + 1
+    for cap in [*range(0, len(want), 7), len(want) - 1]:
+        assert call(cap) is None, cap
+    with pytest.raises(RuntimeError, match="capacity"):
+        tnative.format_sgr("chrA", np.array([7], np.int64),
+                           np.array([1e300]))
+    assert tnative.format_sgr("chrA", np.array([7], np.int64),
+                              np.array([2.5])) == b"chrA\t7\t2.5000\n"
+
+
 @pytest.mark.parametrize("final", [True, False])
 def test_native_fastq_parser(final, native_libs):
     with open(FASTQ, "rb") as f:
@@ -633,8 +746,7 @@ def test_native_scatters_index_and_suffix_array(native_libs):
 
 
 MULTIHOST_COPIES = ("strided", "_next_record_start", "fastq_ranges",
-                    "shard_paths", "write_shard_index",
-                    "merge_sam_shards_gp", "merge_sam_shards")
+                    "shard_paths", "write_shard_index", "merge_sam_shards")
 
 
 @pytest.mark.parametrize("name", MULTIHOST_COPIES)
@@ -653,7 +765,9 @@ def test_multihost_partitions_and_merges(tmp_path):
     """The copies at work: equal byte ranges of the test FASTQ for 1-5
     hosts, equal batch strides, and equal merged SAM bytes from the same
     per-host shards, span-indexed and per-record (genome-partitioned), with
-    the shards removed afterwards."""
+    the shards removed afterwards.  The per-record rows rise within each
+    host, as the CLI writes them: the port's streaming merge refuses rows
+    that do not (test_gp_merge_refuses_rows_out_of_order)."""
     from gnumap_tpu.dist import multihost as jmh
     from gnumap_tpu_torch.dist import multihost as tmh
     for n in range(1, 6):
@@ -676,7 +790,7 @@ def test_multihost_partitions_and_merges(tmp_path):
                         rows.append((2 * i + h, 0, off, off + len(ln)))
                         off += len(ln)
                 else:
-                    rows = [(i // 2, i % 3, 2 * i + h) for i in range(5)]
+                    rows = [(i // 2, i % 2, 2 * i + h) for i in range(5)]
                 mod.write_shard_index(idx, rows)
             merge = (mod.merge_sam_shards if mode == "spans"
                      else mod.merge_sam_shards_gp)
@@ -686,3 +800,83 @@ def test_multihost_partitions_and_merges(tmp_path):
     for mode in ("spans", "gp"):
         same((tmp_path / f"gnumap_tpu_{mode}.sam").read_bytes(),
              (tmp_path / f"gnumap_tpu_torch_{mode}.sam").read_bytes(), mode)
+
+
+def _gp_shards(mod, out, rows_per_host):
+    """Genome-partitioned shards as the CLI writes them: a record line and
+    a (batch, read, key) index row each, in the host's own order."""
+    for h, rows in enumerate(rows_per_host):
+        body, idx = mod.shard_paths(out, h)
+        with open(body, "w") as f:
+            f.writelines(f"r{rd}_b{bt}\t{key}\th{h}\t\u00e9\n"
+                         for bt, rd, key in rows)
+        mod.write_shard_index(idx, rows)
+
+
+def _gp_rows(rng, num_hosts, n_batches=4, n_reads=9):
+    """Per-host rows in the writer's order: reads ascending in each batch,
+    a read's keys (2 * pos + strand) ascending, coordinates partitioned
+    across hosts (host h owns keys = h mod num_hosts), key -1 for the
+    unmapped record host 0 writes."""
+    rows = [[] for _ in range(num_hosts)]
+    for bt in range(n_batches):
+        for rd in range(n_reads):
+            keys = np.sort(rng.choice(400, rng.integers(0, 5),
+                                      replace=False))
+            if not len(keys):
+                rows[0].append((bt, rd, -1))
+            for k in keys.tolist():
+                rows[k % num_hosts].append((bt, rd, k))
+    return rows
+
+
+@pytest.mark.parametrize("num_hosts", [2, 3, 4])
+def test_gp_merge_streams_equal_to_jax(num_hosts, tmp_path):
+    """ROADMAP C.3: the port's merge_sam_shards_gp is a streaming k-way
+    merge (heapq.merge over each host's records, shard and index read line
+    by line together); on shards in the writer's order its bytes equal the
+    JAX merge's (which loads every shard whole and sorts), and it removes
+    the shards afterwards."""
+    from gnumap_tpu.dist import multihost as jmh
+    from gnumap_tpu_torch.dist import multihost as tmh
+    rows = _gp_rows(np.random.default_rng(30 + num_hosts), num_hosts)
+    assert all(rows)
+    got = {}
+    for mod in (jmh, tmh):
+        out = str(tmp_path / mod.__name__.split(".")[0])
+        _gp_shards(mod, out, rows)
+        mod.merge_sam_shards_gp(out, num_hosts, "@HD\tVN:1.6\n")
+        assert not any(os.path.exists(p) for h in range(num_hosts)
+                       for p in mod.shard_paths(out, h))
+        with open(out + ".sam", "rb") as f:
+            got[mod.__name__] = f.read()
+    same(got["gnumap_tpu.dist.multihost"],
+         got["gnumap_tpu_torch.dist.multihost"], "merged bytes")
+    body = got["gnumap_tpu_torch.dist.multihost"].split(b"\n")[1:-1]
+    assert len(body) == sum(len(r) for r in rows)
+
+
+@pytest.mark.parametrize("fault", ["falls", "repeats", "short_index"])
+def test_gp_merge_refuses_rows_out_of_order(fault, tmp_path):
+    """ROADMAP C.3: a host whose index rows fall or repeat, or whose index
+    and shard differ in length, makes the merge raise RuntimeError naming
+    the host and the line, never emit records out of order; the shards
+    stay for inspection."""
+    from gnumap_tpu_torch.dist import multihost as tmh
+    rows = _gp_rows(np.random.default_rng(40), 2)
+    bad = list(rows[1])
+    if fault == "falls":
+        bad[3], bad[4] = bad[4], bad[3]
+        where = "line 5"
+    elif fault == "repeats":
+        bad[4] = bad[3]
+        where = "line 5"
+    out = str(tmp_path / "gp")
+    _gp_shards(tmh, out, [rows[0], bad])
+    if fault == "short_index":
+        tmh.write_shard_index(tmh.shard_paths(out, 1)[1], bad[:-1])
+        where = f"line {len(bad)}"
+    with pytest.raises(RuntimeError, match=f"gp shard 1: .*{where}"):
+        tmh.merge_sam_shards_gp(out, 2, "@HD\tVN:1.6\n")
+    assert all(os.path.exists(p) for h in (0, 1)
+               for p in tmh.shard_paths(out, h))

@@ -95,6 +95,19 @@ def _one_contig(tmp_path, n_reads, seed_g, seed_r, **kw):
             "-m", "9", "-j", "4", "-L", "44", "-B", "16", "--snp"]
 
 
+def _two_contigs(tmp_path):
+    """Two contigs of 6,000 bases and 48 reads from each (cA's with
+    indels); the reads, written to r.fq beside the genome g.fa."""
+    g = sim.random_genome(12_000, seed=91, repeat_frac=0.04)
+    sim.write_fasta(str(tmp_path / "g.fa"),
+                    [("cA", g[:6000]), ("cB", g[6000:])])
+    reads = (sim.simulate_reads(g[:6000], 48, 40, seed=92, contig="cA",
+                                indel_rate=0.05)
+             + sim.simulate_reads(g[6000:], 48, 40, seed=93, contig="cB"))
+    sim.write_fastq(str(tmp_path / "r.fq"), reads)
+    return reads
+
+
 def test_two_process_matches_single(tmp_path):
     """tests/test_multihost.py:39: --num-hosts 2, each host mapping its
     byte range of the FASTQ; 96 reads / B16 = 6 global batches."""
@@ -110,13 +123,7 @@ def test_two_process_segmented_matches_single(tmp_path):
     segment h, reads broadcast, per-read posterior denominators and SAM
     primacy reduce across hosts; the record-level SAM merge and the
     coverage / SNP tracks equal the single-process segmented run."""
-    g = sim.random_genome(12_000, seed=91, repeat_frac=0.04)
-    sim.write_fasta(str(tmp_path / "g.fa"),
-                    [("cA", g[:6000]), ("cB", g[6000:])])
-    reads = (sim.simulate_reads(g[:6000], 48, 40, seed=92, contig="cA",
-                                indel_rate=0.05)
-             + sim.simulate_reads(g[6000:], 48, 40, seed=93, contig="cB"))
-    sim.write_fastq(str(tmp_path / "r.fq"), reads)
+    _two_contigs(tmp_path)
     common = ["-g", str(tmp_path / "g.fa"), str(tmp_path / "r.fq"),
               "-m", "9", "-j", "4", "-L", "44", "-B", "16", "--snp",
               "--segments", "2"]
@@ -125,6 +132,53 @@ def test_two_process_segmented_matches_single(tmp_path):
         assert rc == 0, err[-2000:]
     _assert_same(tmp_path, "single", "multi")
     assert (tmp_path / "single.sgr").read_text().strip()
+
+
+def test_two_process_segmented_index_complete_after_each_batch(tmp_path):
+    """ROADMAP C.3: in the genome-partitioned mode each host appends a
+    batch's per-record index rows as the batch completes, also without
+    --checkpoint, and holds no rows for the run.  Both hosts are killed
+    after 4 of their 6 batches (fault injection): each host's index has a
+    row for every line of its shard, and merging the partial shards gives
+    exactly the single-process run's records of the first 64 reads."""
+    from gnumap_tpu_torch.dist import multihost as tmh
+    reads = _two_contigs(tmp_path)
+    common = ["-g", str(tmp_path / "g.fa"), str(tmp_path / "r.fq"),
+              "-m", "9", "-j", "4", "-L", "44", "-B", "16",
+              "--segments", "2"]
+    _single(tmp_path / "single", common)
+    out = str(tmp_path / "multi")
+    rcs = _run_hosts(out, common, ["--fail-after", "4"])
+    assert all(rc == 3 for rc, _ in rcs), [rc for rc, _ in rcs]
+    for h in (0, 1):
+        body, idx = tmh.shard_paths(out, h)
+        with open(body) as f, open(idx) as fi:
+            n_lines, n_rows = len(f.readlines()), len(fi.readlines())
+        assert n_lines == n_rows > 0, (h, n_lines, n_rows)
+    tmh.merge_sam_shards_gp(out, 2, "")
+    first = {r.name for r in reads[:64]}
+    want = [ln for ln in _body(tmp_path / "single.sam")
+            if not ln.startswith("@") and ln.split("\t")[0] in first]
+    assert _body(out + ".sam") == want and want
+
+
+def test_two_process_segmented_checkpoint_restart(tmp_path):
+    """The genome-partitioned mode killed after 3 of its 6 batches with a
+    checkpoint every batch, then resumed: a resumed host keeps the index
+    rows of its checkpointed batches only (rewritten line by line), and
+    the merged outputs equal the single-process run."""
+    _two_contigs(tmp_path)
+    common = ["-g", str(tmp_path / "g.fa"), str(tmp_path / "r.fq"),
+              "-m", "9", "-j", "4", "-L", "44", "-B", "16", "--snp",
+              "--segments", "2"]
+    _single(tmp_path / "single", common)
+    ck = ["--checkpoint", str(tmp_path / "ck.npz"), "--checkpoint-every",
+          "1"]
+    rcs = _run_hosts(tmp_path / "out", common, [*ck, "--fail-after", "3"])
+    assert all(rc == 3 for rc, _ in rcs), [rc for rc, _ in rcs]
+    for rc, err in _run_hosts(tmp_path / "out", common, ck):
+        assert rc == 0, err[-2000:]
+    _assert_same(tmp_path, "single", "out")
 
 
 def test_two_process_checkpoint_restart(tmp_path):
