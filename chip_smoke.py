@@ -49,6 +49,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              map_acc shapes (131,072 slots; coverage rowmul 1 x 2 rows and
              tallies rowmul 4 x 8 rows): n_real = 131,072, 8,794, 1 and 0
              (the launch floor) in order with pileups, 8,794 in any order,
+             8,572 distinct starts in order in 8,794 slots (the shape the
+             same-block pre-coalescing gives B5 on map_acc's first batch),
              and the pair entry (coverage and tallies in one launch) against
              the two plain calls: bits, repeat launch, time, bound
   host_mem   tools/torch_host_mem.py on the map phase's genome and reads
@@ -93,11 +95,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              46,709,983-base genome with 40 x 20 repeat families, 16,384
              reads, SNP mode, SAM on, accumulated on the device twice (bit-
              equal) and on the host once (counts and SAM equal, coverage
-             and tallies within 1e-5); B5 on the first batch's inputs: the
-             pair launch, the coverage and the tallies call alone, the
-             n_real = 0 floor, and device_accumulate with and without B5
-             (the work around the kernel); then the CLI with --accumulate
-             device --snp on 1,024 config-2 reads against --accumulate host
+             and tallies within 1e-5), and on the CPU once (device
+             accumulation: coverage and tallies equal the card's bit for
+             bit); each batch's live hits and the unique blocks (deltas)
+             B5 gets after the same-block pre-coalescing; B5 on the first
+             batch's inputs: the pair launch, the coverage and the tallies
+             call alone, the n_real = 0 floor, and device_accumulate with
+             and without B5 (the work around the kernel) and its transient
+             device memory; then the CLI with --accumulate device --snp on
+             1,024 config-2 reads against --accumulate host
   map_multi  the reference's bench config 8: build_config10's data (built
              once for map_acc) without SNP mode, TorchMapper and map_stream,
              SAM on: its mapped and multi-mapped counts 16,383 and 4,132,
@@ -254,6 +260,9 @@ HOST_MEM_OVER_F0_MIB = 1024
 # kernel_b5's sets
 ACC_SLOTS = 131_072
 ACC_LIVE = 8_794
+# the unique 128-blocks of those live hits after the same-block
+# pre-coalescing: what B5 gets on that batch, in ACC_LIVE slots
+ACC_UNIQ = 8_572
 # gap_slack of the live-slot sets of kernel_b4: window widths 144, 140, 172
 FULL_SET_SLACKS = (16, 14, 30)
 # The card's published peaks (NVIDIA H100 SXM data sheet): int32 is 64 lanes
@@ -1316,14 +1325,16 @@ def check_b5(rng, rowmul, order, R, H, reps):
     return out
 
 
-def b5_sets(rng, H=ACC_SLOTS, live=ACC_LIVE):
+def b5_sets(rng, H=ACC_SLOTS, live=ACC_LIVE, uniq=ACC_UNIQ):
     """Delta sets of the ordered accumulator at the map_acc shapes: {set:
     (base_units int32[H], n_real, rowmul, nrows, R)} for coverage (rowmul 1,
     2 rows of 128 a delta) and tallies (rowmul 4, 8 rows), R rows of 128
     floats in the accumulator.  Span starts in order with a pileup of 64
     deltas on one block and of 32 on two alternating neighbours, n_real = H,
     ``live``, 1 and 0; past n_real the starts are in no order (the kernel
-    must not read them).  "any_order": the first ``live`` starts shuffled."""
+    must not read them).  "any_order": the first ``live`` starts shuffled.
+    "uniq": the coalesced shape the map path gives B5 now, ``uniq``
+    distinct starts in order in ``live`` slots, 0 past them."""
     import numpy as np
     units = 1 << 18                     # 128-position units of the genome
     base = rng.integers(0, units - 2, H)
@@ -1340,6 +1351,11 @@ def b5_sets(rng, H=ACC_SLOTS, live=ACC_LIVE):
                                    units * rowmul)
         sets[f"{job}_any_order"] = (base.astype(np.int32), live, rowmul,
                                     nrows, units * rowmul)
+    distinct = np.zeros(live, np.int32)
+    distinct[:uniq] = np.sort(rng.choice(units - 2, uniq, replace=False))
+    for job, rowmul, nrows in (("cov", 1, 2), ("tal", 4, 8)):
+        sets[f"{job}_uniq{uniq}"] = (distinct, uniq, rowmul, nrows,
+                                     units * rowmul)
     return sets
 
 
@@ -1363,11 +1379,13 @@ def check_b5_sets(rng, reps):
     a repeat launch's; time, bound and share, index_add_ and its
     deterministic form beside it; then the pair entry (coverage and tallies
     in one launch) against the two plain calls at n_real = ACC_LIVE and
-    ACC_SLOTS.  One list of results."""
+    ACC_SLOTS, and at the coalesced shape (ACC_UNIQ deltas in ACC_LIVE
+    slots).  One list of results."""
     import torch
     from gnumap_tpu_torch.posterior import accum
     dev = torch.device("cuda")
     sets = b5_sets(rng)
+    pairs = (f"n{ACC_LIVE}", f"n{ACC_SLOTS}", f"uniq{ACC_UNIQ}")
     results, keep = [], {}
     for k, (name, (base, n, rowmul, nrows, R)) in enumerate(sets.items()):
         arr0, base_t, deltas, n_real = b5_tensors(base, n, nrows, R, 50 + k,
@@ -1395,13 +1413,13 @@ def check_b5_sets(rng, reps):
             r["library_ordered"] = ordered_index_add((arr0, *args), rowmul,
                                                      reps, ref)
         results.append(r)
-        if name in ("cov_n%d" % ACC_LIVE, "tal_n%d" % ACC_LIVE,
-                    "cov_n%d" % ACC_SLOTS, "tal_n%d" % ACC_SLOTS):
+        if name[4:] in pairs:
             keep[name] = (arr0, base_t, deltas, n_real, ref)
         del got, bits, buf
-    for n in (ACC_LIVE, ACC_SLOTS):
-        cov0, base_t, cov_d, n_real, cov_ref = keep[f"cov_n{n}"]
-        tal0, base_2, tal_d, _, tal_ref = keep[f"tal_n{n}"]
+    for tag in pairs:
+        cov0, base_t, cov_d, n_real, cov_ref = keep[f"cov_{tag}"]
+        tal0, base_2, tal_d, _, tal_ref = keep[f"tal_{tag}"]
+        n = int(n_real)
         assert torch.equal(base_t, base_2)
         got = [accum.apply_deltas_pair(cov0.clone(), tal0.clone(), base_t,
                                        cov_d, tal_d, n_real)
@@ -1411,7 +1429,7 @@ def check_b5_sets(rng, reps):
                    for g, w in zip(got[0], (cov_ref, tal_ref)))
         bufs = (cov0.clone(), tal0.clone())
         pair_args = (cov0, tal0, base_t, cov_d, tal_d, n_real)
-        r = dict(set=f"pair_n{n}", H=len(base_t), n_real=n, mismatches=mism,
+        r = dict(set=f"pair_{tag}", H=len(base_t), n_real=n, mismatches=mism,
                  repeat_equal=all(torch.equal(a.view(torch.int32),
                                               b.view(torch.int32))
                                   for a, b in zip(*got)),
@@ -1926,31 +1944,62 @@ def map_acc(tmp, fa, reads, pl, wrappers):
 
     # the first device_accumulate call's arguments, to time the work around
     # B5 (sorts, weights, the dense delta windows) afterwards
-    real_acc, first_acc = pl.device_accumulate, []
+    # and, a call each, its live hits and the deltas it hands B5 (device
+    # tensors, read after the run)
+    real_acc, first_acc, per_call = pl.device_accumulate, [], []
+    accum_mod, pair = wrappers["accum"]
 
-    def acc_spy(*a):
+    def acc_spy(*a, **kw):
         if not first_acc:
-            first_acc.append(a)
-        return real_acc(*a)
+            first_acc.append((a, kw))
+        inner = getattr(accum_mod, pair)
+
+        def b5(*x, **k):
+            per_call.append((a[3]["valid_h"].sum(), x[-1].clone()))
+            return inner(*x, **k)
+
+        setattr(accum_mod, pair, b5)
+        try:
+            return real_acc(*a, **kw)
+        finally:
+            setattr(accum_mod, pair, inner)
 
     pl.device_accumulate = acc_spy
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     try:
         (d1, w1), launches, spies = drive(lambda: run("device"), ("accum",),
                                           wrappers)
     finally:
         pl.device_accumulate = real_acc
+    run_peak = torch.cuda.max_memory_allocated() - held
     around = None
     if first_acc:
-        acfg, aB, apwm2, arows, acov, atal = first_acc[0]
+        (acfg, aB, apwm2, arows, acov, atal), akw = first_acc[0]
         bufs = (acov.clone(), atal.clone() if atal is not None else None)
-        accum_mod, pair = wrappers["accum"]
         real_pair = getattr(accum_mod, pair)
         n0 = accum_mod.LAUNCHES
-        total_ms = cuda_ms(lambda: real_acc(acfg, aB, apwm2, arows, *bufs), 5)
+        # the transient device memory of one call, above what it is given
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        real_acc(acfg, aB, apwm2, arows, *bufs, **akw)
+        torch.cuda.synchronize()
+        call_peak = torch.cuda.max_memory_allocated() - held
+        total_ms = cuda_ms(
+            lambda: real_acc(acfg, aB, apwm2, arows, *bufs, **akw), 5)
+        # the host's enqueue of one call (cuda_ms reads it where it outlasts
+        # the spin kernel) and the card's kernel time under torch.profiler
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        real_acc(acfg, aB, apwm2, arows, *bufs, **akw)
+        enqueue_ms = (time.perf_counter() - t1) * 1e3
+        _, prof = device_profile(
+            lambda: real_acc(acfg, aB, apwm2, arows, *bufs, **akw))
         setattr(accum_mod, pair, lambda cov, tal, *a, **k: (cov, tal))
         try:
-            rest_ms = cuda_ms(lambda: real_acc(acfg, aB, apwm2, arows, *bufs),
-                              5)
+            rest_ms = cuda_ms(
+                lambda: real_acc(acfg, aB, apwm2, arows, *bufs, **akw), 5)
         finally:
             setattr(accum_mod, pair, real_pair)
         accum_mod.LAUNCHES = n0
@@ -1958,13 +2007,37 @@ def map_acc(tmp, fa, reads, pl, wrappers):
         span = pl.acc_span(acfg)
         around = dict(device_accumulate_ms=total_ms,
                       device_accumulate_without_b5_ms=rest_ms,
+                      host_enqueue_ms=enqueue_ms,
+                      kernel_ms=prof["device_ms"],
+                      kernel_events=prof["device_events"],
+                      top_kernels=prof["top"],
                       slots=H, cov_delta_bytes=H * span * 4,
-                      tal_delta_bytes=H * span * 16)
+                      tal_delta_bytes=H * span * 16,
+                      live_hits=[int(h) for h, _ in per_call],
+                      b5_deltas=[int(n) for _, n in per_call],
+                      peak_bytes_over_inputs=call_peak)
         del bufs, first_acc[:]
         torch.cuda.empty_cache()
     d2, w2 = run("device")
     h, wh = run("host")
+    # the same batches accumulated on the device program's CPU form: the
+    # card's f32 bits must be the port's on the CPU (which
+    # tests/test_torch_accum_parity.py holds to the JAX package's)
+    t1 = time.perf_counter()
+    c = pl.map_stream(pl.TorchMapper(gen, idx, cfg, device="cpu",
+                                     accumulate="device"),
+                      iter(batches), collect_sam=False)
+    cpu_s = time.perf_counter() - t1
+    cpu_equal = (c.stats.n_mapped == d1.stats.n_mapped
+                 and c.stats.n_multi == d1.stats.n_multi
+                 and all(np.array_equal(
+                     getattr(c, k).astype(np.float32).view(np.int32),
+                     getattr(d1, k).astype(np.float32).view(np.int32))
+                         for k in ("coverage", "tallies")))
     failures = []
+    if not cpu_equal:
+        failures.append("map_acc: the card's device accumulation differs "
+                        "from the CPU's")
     counts = {f: [getattr(r.stats, f) for r in (d1, d2, h)]
               for f in ("n_reads", "n_mapped", "n_multi", "n_candidates")}
     if any(len(set(v)) != 1 for v in counts.values()):
@@ -1986,7 +2059,6 @@ def map_acc(tmp, fa, reads, pl, wrappers):
     cli = {}
     for acc in ("device", "host"):
         o = os.path.join(tmp, f"acc_{acc}")
-        accum_mod = wrappers["accum"][0]
         accum_mod.LAUNCHES = 0
         d = run_cli(["-g", fa, "-o", o, *CLI_ARGS, "--device", "cuda",
                      "--snp", "--accumulate", acc, sub])
@@ -2009,8 +2081,11 @@ def map_acc(tmp, fa, reads, pl, wrappers):
                launches=launches, counts=counts,
                device_reads_per_s=[n / w1, n / w2], host_reads_per_s=n / wh,
                device_map_s=[w1, w2], host_map_s=wh,
-               device_accumulate=around,
-               device_runs_bit_equal=bit_equal, max_abs_err_vs_host=err,
+               device_accumulate=around, device_run_peak_bytes=run_peak,
+               device_runs_bit_equal=bit_equal,
+               cuda_bits_equal_cpu=dict(batches=len(batches), equal=cpu_equal,
+                                        cpu_map_s=cpu_s),
+               max_abs_err_vs_host=err,
                within_1e_5=close, sam_equal=sam_equal,
                sam_records="".join(h.sam_lines).count("\n"),
                cli=dict(sam_equal=cli["device"][0] == cli["host"][0],

@@ -500,8 +500,44 @@ def acc_padded_len(cfg: MapperConfig, G: int) -> int:
     return ((G + 2 * span + 127) // 128) * 128
 
 
+def _segmented(comb, vals, seg, reverse=False):
+    """Segmented inclusive scan of vals (H, ...) under comb, restarting where
+    the grouped ids seg (H,) change (gnumap_tpu/pipeline/mapper.py
+    _segmented): the combination tree of jax.lax.associative_scan, so the
+    f32 bits are the reference's.  That scan pairs (e[2k], e[2k+1]), scans
+    the pairs recursively and combines each even e[2k] with the scanned
+    pair before it; here the same tree runs in place on a copy, level by
+    level on strided views (level l's element j is the block of 2^l ends at
+    position 2^l (j + 1) - 1, where its result also lands), with the
+    reference's operator where(seg_a == seg_b, comb(a, b), b).  A combined
+    element keeps the later id, so the ids never change.  (The reference
+    interleaves by adding zero-padded halves, which would turn a -0.0 into
+    +0.0; the values scanned here are never -0.0.)"""
+    if reverse:
+        return _segmented(comb, vals.flip(0), seg.flip(0)).flip(0)
+    out = vals.clone()
+    n = out.shape[0]
+    seg = seg.reshape((n,) + (1,) * (out.ndim - 1))
+
+    def step(first, count, s):
+        if count:
+            a = slice(first - s, first - s + 2 * s * (count - 1) + 1, 2 * s)
+            b = slice(first, first + 2 * s * (count - 1) + 1, 2 * s)
+            vb = out[b]
+            torch.where(seg[a] == seg[b], comb(out[a], vb), vb, out=vb)
+
+    s = 1
+    while n // s >= 2:          # up: pairs of level-l blocks
+        step(2 * s - 1, n // s // 2, s)
+        s *= 2
+    while s > 1:                # down: each even block after the first
+        s //= 2
+        step(3 * s - 1, (n // s - 1) // 2, s)
+    return out
+
+
 def device_accumulate(cfg: MapperConfig, B: int, pwm2, rows: dict, cov,
-                      tal) -> torch.Tensor:
+                      tal, n_live: int) -> torch.Tensor:
     """[FROZEN v5] On-device coverage / SNP-tally accumulation
     (gnumap_tpu/pipeline/mapper.py device_accumulate).
 
@@ -517,48 +553,64 @@ def device_accumulate(cfg: MapperConfig, B: int, pwm2, rows: dict, cov,
     128] (flat 4p + b) or None; Gpad = acc_padded_len, whose pad absorbs
     spans clipped at the genome's ends.
 
-    Structure: one composite-key stable sort orders the hits by (read,
-    strand, position, -score, slot); per-read totals and winner counts are
-    integer index_adds (exact, so deterministic on a card); each hit's
-    coverage and tally delta is a dense span-wide window built with
-    elementwise ops and one scatter with unique targets (a read base lands
-    in at most one genome column); the windows, sorted stably by their
-    128-block, go to the ordered read-modify-write kernel (posterior/accum,
-    csrc/accum_rmw.cu).  f32 add order is (128-block, hit slot), as
-    [FROZEN v5.2] fixes it; the reference pre-sums same-block deltas with a
-    tree-ordered scan, because its RMW costs two DMA latencies per delta,
-    so the two agree to f32 rounding.  Nothing here waits for the host.
+    [FROZEN v5.2] f32 arithmetic, the reference's bit for bit:
+      * one composite-key stable sort orders the hits by (read, strand,
+        position, -score, slot), the reference's lax.sort; a read's total
+        is the f32 segmented scan sum of its winners' f32 scores, broadcast
+        back by a reverse segmented max, and w = score / max(total, 1);
+      * each hit's coverage and tally delta is a dense span-wide window
+        built with elementwise ops and one scatter with unique targets (a
+        read base lands in at most one genome column);
+      * the windows, sorted stably by their 128-block, pre-coalesce: a
+        segmented scan sum over each block's run of hits (in slot order)
+        leaves one delta per unique block at the run's end;
+      * the ordered read-modify-write kernel (posterior/accum,
+        csrc/accum_rmw.cu) adds the unique blocks' deltas, coverage and
+        tallies in one launch.
+    The segmented scans are _segmented, the reference's combination tree.
+    Winner counts are exact integer index_adds.  Nothing here waits for the
+    host: the number of unique blocks stays a device tensor.
+
+    n_live: a count of slots, known to the host, whose first slots hold
+    every valid hit (the finish fetches n_keep, and the winners' compaction
+    fills the first n_keep slots).  Only those slots are sorted, scanned and
+    windowed: the reference's H slots sort the invalid ones after them, and
+    a position of a segmented scan depends only on the positions before
+    it, so the rest change no bit.
 
     Returns stats int32[4] = [n_mapped, n_multi, n_valid, n_keep]."""
     from gnumap_tpu_torch.config import PWM_SCALE
     from gnumap_tpu_torch.posterior import accum
-    valid_h, row_h = rows["valid_h"], rows["row_h"]
-    score_h, len_h = rows["score_h"], rows["len_h"]
-    ops, jfin = rows["ops"], rows["jfin"]
-    H = valid_h.shape[0]
+    H = min(rows["valid_h"].shape[0], max(1, n_live))
+    valid_h, row_h, score_h, len_h, ops, jfin, cand_h = (
+        rows[k][:H] for k in ("valid_h", "row_h", "score_h", "len_h", "ops",
+                              "jfin", "cand_h"))
     L = cfg.max_read_len
     span = acc_span(cfg)
     Gpad = cov.shape[0] * 128
     dev = valid_h.device
     i64 = torch.int64
-    pos_h = (torch.div(rows["cand_h"].long() - cfg.gap_slack, 8,
+    big = torch.iinfo(i64).max
+    pos_h = (torch.div(cand_h.long() - cfg.gap_slack, 8,
                        rounding_mode="floor") * 8 + jfin.long())
     read_id = row_h.long() % B
     # dedupe + weights: order (read, strand, pos, -score, slot); row =
     # read + strand * B, so (read, row) order is (2 read + strand) order
     key = torch.where(valid_h, ((2 * read_id + row_h.long() // B) << 32)
-                      + pos_h + (1 << 31), torch.iinfo(i64).max)
+                      + pos_h + (1 << 31), big)
     order = torch.sort(-score_h, stable=True).indices
     order = order[torch.sort(key[order], stable=True).indices]
     sk = key[order]
     first = torch.ones(H, dtype=torch.bool, device=dev)
     first[1:] = sk[1:] != sk[:-1]
-    win = first & valid_h[order]
+    valid_s = valid_h[order]
+    win = first & valid_s
     rid = read_id[order]
-    sc = torch.where(win, score_h[order], 0)
-    tot = torch.zeros(B, dtype=i64, device=dev).index_add_(0, rid, sc.long())
-    w_sorted = torch.where(
-        win, sc.float() / torch.clamp_min(tot[rid].float(), 1.0), 0.0)
+    rseg = torch.where(valid_s, rid, big)
+    sc = torch.where(win, score_h[order].float(), 0.0)
+    tot = _segmented(torch.maximum, _segmented(torch.add, sc, rseg), rseg,
+                     reverse=True)
+    w_sorted = torch.where(win, sc / torch.clamp_min(tot, 1.0), 0.0)
     w = torch.empty_like(w_sorted)
     w[order] = w_sorted
     n_win = torch.zeros(B, dtype=torch.int32, device=dev).index_add_(
@@ -577,32 +629,48 @@ def device_accumulate(cfg: MapperConfig, B: int, pwm2, rows: dict, cov,
     ref_len = step.sum(dim=1)
     # the delta windows in (128-block, slot) order; invalid hits sort last
     base_units = torch.clamp(pos_h >> 7, 0, (Gpad - span) >> 7)
-    bkey = torch.where(valid_h, base_units, torch.iinfo(i64).max)
+    bkey = torch.where(valid_h, base_units, big)
     perm = torch.sort(bkey, stable=True).indices
-    base_s = base_units[perm].to(torch.int32)
-    n_real = valid_h.sum(dtype=torch.int32)
+    skey = bkey[perm]
+    # the unique blocks: the k-th run of equal blocks ends at srcu[k]
+    ends = torch.ones(H, dtype=torch.bool, device=dev)
+    ends[:-1] = skey[1:] != skey[:-1]
+    ends &= skey != big
+    ku = torch.cumsum(ends, 0) - 1
+    n_uniq = (ku[-1] + 1).to(torch.int32)
+    srcu = torch.zeros(H + 1, dtype=i64, device=dev)
+    srcu[torch.where(ends, ku, H)] = torch.arange(H, device=dev)
+    srcu = srcu[:H]
+    base_u = torch.where(torch.arange(H, device=dev) < n_uniq, skey[srcu],
+                         0).to(torch.int32)
+    # coverage and tally windows side by side in one buffer, so that one
+    # scan coalesces both (the scan is elementwise along the window)
+    cw = span // 128
+    deltas = torch.zeros((H, cw * (5 if tal is not None else 1), 128),
+                         dtype=torch.float32, device=dev)
     s = (pos_h - (base_units << 7))[perm]
     kk = torch.arange(span, device=dev)[None, :]
-    cov_delta = torch.where((kk >= s[:, None])
-                            & (kk < (s + ref_len[perm])[:, None]),
-                            w[perm][:, None], 0.0)
-    cov_delta = cov_delta.reshape(H, span // 128, 128)
-    if tal is None:
-        accum.apply_deltas(cov, base_s, cov_delta, n_real, rowmul=1)
-    else:
+    deltas[:, :cw] = torch.where((kk >= s[:, None])
+                                 & (kk < (s + ref_len[perm])[:, None]),
+                                 w[perm][:, None], 0.0).reshape(H, cw, 128)
+    if tal is not None:
         val = pwm2[row_h[perm].long()].float() \
             * (w[perm] * (1.0 / PWM_SCALE))[:, None, None]    # (H, L, 4)
         col = gidx[perm] - (base_units[perm] << 7)[:, None]
         ok = ((opb[perm] == 0) & in_read[perm] & (col >= 0) & (col < span))
-        tgt = (torch.arange(H, device=dev)[:, None] * span + col)[ok]
-        tal_delta = torch.zeros((H * span, 4), dtype=torch.float32,
-                                device=dev)
-        tal_delta[tgt] = val[ok]
-        # row-major (span, 4) is the 4p + b lane interleave
+        # row h's tallies are the (span, 4) rows from h * 5 span / 4 +
+        # span / 4 of the buffer; row-major (span, 4) is the 4p + b lane
+        # interleave
+        tgt = (torch.arange(H, device=dev)[:, None] * (5 * span // 4)
+               + span // 4 + col)[ok]
+        deltas.view(-1, 4)[tgt] = val[ok]
+    deltas = _segmented(torch.add, deltas, skey)
+    if tal is None:
+        accum.apply_deltas(cov, base_u, deltas[srcu], n_uniq, rowmul=1)
+    else:
         # coverage and tallies in one launch, coverage first
-        accum.apply_deltas_pair(cov, tal, base_s, cov_delta,
-                                tal_delta.reshape(H, span // 32, 128),
-                                n_real)
+        accum.apply_deltas_pair(cov, tal, base_u, deltas[:, :cw][srcu],
+                                deltas[:, cw:][srcu], n_uniq)
     return stats
 
 
@@ -914,11 +982,12 @@ class TorchMapper:
     def _device_map_acc_q(self, packed, lens):
         return self._device_map_acc(*self._unpack_pwm(packed, lens), lens)
 
-    def _apply_acc(self, rows, pwm2) -> torch.Tensor:
+    def _apply_acc(self, rows, pwm2, n_keep: int) -> torch.Tensor:
         """The accumulate program: [FROZEN v5] dedupe, weights and the
-        ordered RMW into the device accumulators (in place)."""
+        ordered RMW into the device accumulators (in place), on the first
+        n_keep hit slots, which hold every hit."""
         return device_accumulate(self.cfg, pwm2.shape[0] // 2, pwm2, rows,
-                                 self._cov_dev, self._tal_dev)
+                                 self._cov_dev, self._tal_dev, n_live=n_keep)
 
     def _submit_acc(self, batch: ReadBatch):
         """[FROZEN v5.1] submit runs ONLY the map program; the accumulate
@@ -962,7 +1031,7 @@ class TorchMapper:
         if n_keep > H or n_indel > K:
             return self._finish_acc_overflow(batch, n_keep, n_indel,
                                              n_valid, stats, t0)
-        stvec = self._apply_acc(rows, pwm2)
+        stvec = self._apply_acc(rows, pwm2, n_keep)
         if cfg.sam_out:
             blob, done = blob_out
             if done is not None:
