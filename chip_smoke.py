@@ -119,6 +119,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              rules, the one read both count wrong (CONFIG3_WRONG, whose
              truth no seed reaches), its records; card against CPU in SNP
              mode on 1,024 reads that hold it: SAM, SGR and SGREX bytes
+  graph      the captured device programs (pipeline/graphs.py) against
+             the same programs run eagerly, on bench config 2 (three
+             batches of 16,384 reads), bench config 6 (FM, three batches of
+             8,192) and the accumulate path's map program on config 10
+             (build_config10's two batches), every batch twice: the
+             outputs of each replay equal the eager program's bit for bit
+             (0 mismatches, every output of the program); the launches a
+             replay adds equal an eager call's; then, eager against graph,
+             the host time of the mapper's submit (median of 20), its
+             device time (the bench's device_ms, median of 20) and its
+             kernel and copy events under torch.profiler; the bytes the
+             graphs' private pools reserved, the host seconds of the
+             warm-up and of the capture, and the first two batches of a
+             fresh mapper (submit and finish), eager against graph
   map_bs     the reference's bench config 4 (build_config4): 16,384
              bisulfite-converted reads against a 46,709,983-base genome on
              the per-strand collapsed CSR pair (-m 16, base-3 seeds),
@@ -163,8 +177,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              its own); fails unless it exits 0, its last line parses, the
              bit check holds, accuracy >= 0.999, mapped and multi-mapped
              equal config 2's in BENCH_r05.json, every profile key is
-             finite, the profile's stages sum to within 15% of the
-             mapper's own submit, and B1, B2 and B3 launched; its headline
+             finite, the profile's stages (eager prefixes) sum to within
+             15% of the mapper's own submit with its program run eagerly,
+             and B1, B2 and B3 launched; its headline
              line is printed on a line of its own
 map_bs, map_fm and map_seg print reads/s, the card's kernel and copy time of a warm
 repeat under torch.profiler (its wall, and so the idle share beside it,
@@ -203,8 +218,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernel_b1", "kernel_b2", "kernel_b3",
           "kernel_b4", "kernel_b5", "host_mem", "map", "map_host",
           "map_indel", "parity", "golden", "map_ckpt", "map_unbanded",
-          "map_acc", "map_multi", "map_cfg3", "map_bs", "map_fm", "map_seg",
-          "map_dist", "bench")
+          "map_acc", "map_multi", "map_cfg3", "graph", "map_bs", "map_fm",
+          "map_seg", "map_dist", "bench")
 GENOME_LEN = 4_641_652
 N_READS = 16_384
 READ_LEN = 100
@@ -956,7 +971,11 @@ def check_tb_kernels(rng, genome_np, genome_t, H, cfg, n_oracle, reps,
 
 class Spy:
     """Wraps a kernel wrapper in its module: keeps the inputs of its first
-    call, to time the kernel at exactly the shapes the main path gives it."""
+    call, to time the kernel at exactly the shapes the main path gives it.
+    A mapper's first call of a device program is the eager warm-up before
+    its capture (pipeline/graphs.py), so under ``drive`` that first call
+    carries the main path's own inputs; the capture calls the wrapper
+    again, after ``first`` is set, and a replay calls no Python."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
@@ -2097,6 +2116,100 @@ def map_acc(tmp, fa, reads, pl, wrappers):
     return res, failures, launches, spies
 
 
+def graph_programs(pl):
+    """The graph phase (see the module docstring).  Returns (result by
+    workload, failures)."""
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from gnumap_tpu_torch import bench as bench_mod
+    from gnumap_tpu_torch.io import fastq as io_fastq
+    from gnumap_tpu_torch.pipeline import graphs
+    from gnumap_tpu_torch.pipeline.staging import StagingRing
+    dev = torch.device("cuda")
+    res, failures = {}, []
+    for name, cfgnum in (("config2", 2), ("config6", 6), ("config10_acc",
+                                                          10)):
+        if cfgnum == 10:
+            cfg, gen, idx, recs = config10()
+        else:
+            B = bench_mod.CONFIGS[cfgnum].get("batch", 8192)
+            cfg, gen, idx, recs = bench_mod.build_workload(
+                3 * B, 0, 0, config=cfgnum)
+        acc = "device" if cfgnum == 10 else "host"
+        batches = list(io_fastq.batch_reads(iter(recs), cfg))
+        m = pl.TorchMapper(gen, idx, cfg, device="cuda", accumulate=acc)
+        fn = m._device_map_acc_q if acc == "device" else m._device_map_tb_q
+        ring = StagingRing(dev, 2)
+        mism, n0 = [], graphs._counts()
+        for _ in range(2):
+            for b in batches:
+                arrays = dict(packed=pl.pack_reads(b.codes, b.quals),
+                              lens=np.asarray(b.lens, np.int32))
+                got = pytree.tree_leaves(m._programs(fn, ring.acquire(),
+                                                     **arrays))
+                want = pytree.tree_leaves(fn(*(
+                    torch.from_numpy(a).to(dev) for a in arrays.values())))
+                mism.append(sum(int((g != w).sum())
+                                for g, w in zip(got, want)))
+        torch.cuda.synchronize()
+        (cap,) = m._programs.captured.values()
+        calls = 2 * len(batches)
+        # one warm-up and (calls - 1) replays through the graph, calls
+        # eager runs beside them: 2 * calls runs in all
+        runs = [(a - b) / (2 * calls)
+                for a, b in zip(graphs._counts(), n0)]
+        per_replay = {mod.__name__.rsplit(".", 1)[1]: n
+                      for mod, n in cap.launches}
+        eager_run = {mod.__name__.rsplit(".", 1)[1]: r
+                     for mod, r in zip(graphs.KERNEL_MODULES, runs) if r}
+        if any(mism) or cap.replays != calls - 1 or per_replay != eager_run:
+            failures.append(f"graph {name}: mismatches {mism}, replays "
+                            f"{cap.replays}, launches a replay {per_replay} "
+                            f"against an eager run's {eager_run}")
+        b = batches[0]
+        t = {}
+        for mode in ("eager", "graph"):
+            m._programs.graphed = mode == "graph"
+            t[mode] = dict(
+                submit_enqueue_ms=bench_mod.host_ms(lambda: m.submit(b), 20,
+                                                    dev),
+                device_ms=bench_mod.device_ms(lambda: m.submit(b), 20, dev),
+                submit_cuda=bench_mod.cuda_events(lambda: m.submit(b)))
+        m._programs.graphed = True
+        # what a capture costs a short run: the first two batches of a
+        # fresh mapper, eager and graph in turns (eager, graph, graph,
+        # eager, ...), the host seconds of each batch's submit and finish
+        first = {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager", "eager", "graph"):
+            m2 = pl.TorchMapper(gen, idx, cfg, device="cuda",
+                                accumulate=acc)
+            m2._programs.graphed = mode == "graph"
+            run = []
+            for bb in batches[:2]:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = m2.submit(bb)
+                t2 = time.perf_counter()
+                m2.finish(bb, out)
+                torch.cuda.synchronize()
+                run.append(dict(submit_s=t2 - t1,
+                                finish_s=time.perf_counter() - t2))
+            first[mode].append(run)
+            del m2, out
+        res[name] = dict(
+            batch=int(b.codes.shape[0]), batches=len(batches),
+            program=fn.__name__, blob_mismatches=mism,
+            launches_a_replay=per_replay, eager=t["eager"],
+            graph=t["graph"], pool_bytes=m._programs.pool_bytes(),
+            warm_up_s=cap.warm_up_s, capture_s=cap.capture_s,
+            first_two_batches_s=first,
+            captured=len(m._programs.captured))
+        del m, fn, cap, ring, got, want
+        torch.cuda.empty_cache()
+    return res, failures
+
+
 def device_profile(fn):
     """fn() once more under torch.profiler: (fn's result, the card's kernel
     and copy time in ms, the number of such events, the five costliest by
@@ -2709,15 +2822,15 @@ def bench(tmp):
                      f"{want['mapped']} {want['multi_mapped']}")
     prof = head.get("profile") or {}
     bad = [k for k in bench_mod.PROFILE_KEYS + ("sum_of_stages_ms",
-                                                "submit_ms")
+                                                "submit_ms", "submit_eager_ms")
            if not (isinstance(prof.get(k), (int, float))
                    and math.isfinite(prof[k]))]
     if bad:
         fails.append(f"bench: profile keys missing or not finite {bad}")
-    elif abs(prof["sum_of_stages_ms"] - prof["submit_ms"]) \
-            > 0.15 * prof["submit_ms"]:
+    elif abs(prof["sum_of_stages_ms"] - prof["submit_eager_ms"]) \
+            > 0.15 * prof["submit_eager_ms"]:
         fails.append(f"bench: stages sum to {prof['sum_of_stages_ms']} ms, "
-                     f"submit takes {prof['submit_ms']} ms")
+                     f"the eager submit takes {prof['submit_eager_ms']} ms")
     launches = head.get("launches") or {}
     for k in ("nw_band", "nw_pure", "nw_tb"):
         if not launches.get(k, 0) > 0:
@@ -2893,6 +3006,9 @@ def main(argv=None) -> int:
                 kernels[name]["launches"] = cnt
         for name, sp in spies.items():
             if sp.first is None:
+                if launches[name] > 0:
+                    failures.append(f"{path}: {name} launched but no eager "
+                                    "call under drive gave its inputs")
                 continue
             r = main_path_check(name, sp, plains[name])
             emit(f"{path}_{name}", **r)
@@ -3040,6 +3156,7 @@ def main(argv=None) -> int:
             sgr = np.loadtxt(out + ".sgr", usecols=2, ndmin=1)
             emit("map", reads=n, wall_s=wall, map_s=done["map_s"],
                  reads_per_s=done["reads_per_s"],
+                 peak_device_bytes=done.get("peak_device_bytes"),
                  mapped_rate=n_mapped / max(n, 1), accuracy=acc,
                  launches=launches, device_s=done["device_s"],
                  host_s=done["host_s"], index_s=done["index_s"],
@@ -3133,6 +3250,11 @@ def main(argv=None) -> int:
                 emit(phase, **res)
                 failures.extend(fails)
                 path_done(phase, launches, spies)
+        if "graph" in only:
+            t0 = time.perf_counter()
+            res, fails = graph_programs(pl)
+            emit("graph", seconds=time.perf_counter() - t0, **res)
+            failures.extend(fails)
         config10.cache_clear()
         if "map_bs" in only:
             res, fails, launches, spies = map_bs(tmp, fa, genome_str, pl,

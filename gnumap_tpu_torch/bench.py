@@ -607,7 +607,10 @@ def profile_stages(cfg, gen, idx, recs, device, reps=PROFILE_REPS):
     ``seed_ms`` and ``traceback_ms`` are the sums of their two and three
     stages.  ``sum_of_stages_ms`` (h2d through blob_fetch) stands beside
     ``submit_ms``, the mapper's own submit of the same batch (pack, staged
-    upload, program, fetch), timed the same way."""
+    upload, program, fetch; on a card the program is its captured graph,
+    pipeline/graphs.py), and ``submit_eager_ms``, the same submit with the
+    program run eagerly, which the eager prefixes telescope to, all timed
+    the same way."""
     from gnumap_tpu_torch.io import fastq as io_fastq
     from gnumap_tpu_torch.pipeline import mapper as pl
 
@@ -664,10 +667,25 @@ def profile_stages(cfg, gen, idx, recs, device, reps=PROFILE_REPS):
     def submit():
         return m.submit(batch)
 
+    # a mapper without captured programs (an earlier checkout of the port)
+    # submits eagerly
+    programs = getattr(m, "_programs", None)
+
+    def submit_eager():
+        graphed = programs is not None and programs.graphed
+        if graphed:
+            programs.graphed = False
+        try:
+            return m.submit(batch)
+        finally:
+            if graphed:
+                programs.graphed = True
+
     t = {name: device_ms(fn, reps, dev) for name, fn in (
         ("h2d", h2d), ("strand", strand), ("gather", gather), ("seed", seed),
         ("dp", dp), ("retain", retain), ("pure", pure),
-        ("traceback", traceback), ("full", full), ("submit", submit))}
+        ("traceback", traceback), ("full", full), ("submit", submit),
+        ("submit_eager", submit_eager))}
     out = {"batch": int(batch.codes.shape[0]),
            "h2d_ms": t["h2d"],
            "strand_ms": t["strand"] - t["h2d"],
@@ -684,10 +702,92 @@ def profile_stages(cfg, gen, idx, recs, device, reps=PROFILE_REPS):
         "h2d_ms", "strand_ms", "seed_ms", "dp_ms", "traceback_ms",
         "blob_fetch_ms"))
     out["submit_ms"] = t["submit"]
+    out["submit_eager_ms"] = t["submit_eager"]
     out["prefix_ms"] = t
     out["clock"] = ("cuda events behind a spin kernel" if pin
                     else "host perf_counter")
     out["reps"] = reps
+    out.update(submit_split(m, batch, reps))
+    return out
+
+
+def host_ms(fn, reps, device):
+    """Median host time of fn() in ms over ``reps`` calls after one warm-up,
+    the device idle before each call (what the caller's thread spends, not
+    the device)."""
+    on_card = torch.device(device).type == "cuda"
+    ts = []
+    for k in range(reps + 1):
+        if on_card:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        if k:
+            ts.append((time.perf_counter() - t) * 1e3)
+        del res
+    if on_card:
+        torch.cuda.synchronize()
+    return float(np.median(ts))
+
+
+def cuda_events(fn):
+    """fn() once under torch.profiler: the device's kernel and copy / set
+    events and their device time in ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = {"kernels": 0, "copies": 0, "device_ms": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        kind = "copies" if e.key.startswith(("Memcpy", "Memset")) \
+            else "kernels"
+        n[kind] += e.count
+        n["device_ms"] += getattr(e, "self_device_time_total",
+                                  getattr(e, "self_cuda_time_total", 0)) / 1e3
+    return n
+
+
+def submit_split(m, batch, reps):
+    """Where the host time of the mapper's submit goes, each part timed
+    alone on the host clock (host_ms): ``pack_ms`` (pack_reads),
+    ``upload_ms`` (the packed reads and lengths staged through a ring of
+    pinned buffers of its own), ``program_enqueue_ms`` (the eager device
+    program on inputs already on the device, TorchMapper._device_map_tb_q
+    or _device_map_packed_q), ``fetch_ms`` (the blob's copy into a pinned
+    buffer), beside ``submit_enqueue_ms``, the whole submit.  On a card
+    ``submit_cuda`` counts the kernel and copy events of one submit
+    (torch.profiler)."""
+    from gnumap_tpu_torch.pipeline import mapper as pl
+    from gnumap_tpu_torch.pipeline.staging import StagingRing
+    dev = m.device
+    ring = StagingRing(dev, 2)
+    packed = pl.pack_reads(batch.codes, batch.quals)
+    lens = np.asarray(batch.lens, np.int32)
+
+    def upload():
+        s = ring.acquire()
+        return s.upload("packed", packed), s.upload("lens", lens)
+
+    p, ln = upload()
+    prog = (m._device_map_tb_q if m.finish_impl == "device"
+            else m._device_map_packed_q)
+    blob = prog(p, ln)
+    out = dict(
+        pack_ms=host_ms(lambda: pl.pack_reads(batch.codes, batch.quals),
+                        reps, dev),
+        upload_ms=host_ms(upload, reps, dev),
+        program_enqueue_ms=host_ms(lambda: prog(p, ln), reps, dev),
+        fetch_ms=host_ms(lambda: ring.acquire().fetch("blob", blob), reps,
+                         dev),
+        submit_enqueue_ms=host_ms(lambda: m.submit(batch), reps, dev))
+    if dev.type == "cuda":
+        out["submit_cuda"] = cuda_events(lambda: m.submit(batch))
     return out
 
 
@@ -952,7 +1052,7 @@ def main(argv=None) -> int:
             prof = profile_stages(*head_work, device)
             sys.stderr.write(f"profile: {json.dumps(prof)}\n")
             bad = [k for k in PROFILE_KEYS + ("sum_of_stages_ms",
-                                              "submit_ms")
+                                              "submit_ms", "submit_eager_ms")
                    if not np.isfinite(prof[k])]
             if bad:
                 failed.append(f"profile: not finite {bad}")

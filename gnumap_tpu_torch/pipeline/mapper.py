@@ -59,6 +59,7 @@ from gnumap_tpu_torch.io import sam as sam_io
 from gnumap_tpu_torch.io.fastq import ReadBatch
 from gnumap_tpu_torch.oracle import oracle
 from gnumap_tpu_torch.align import nw_band, nw_full, nw_pure, nw_ref, nw_tb
+from gnumap_tpu_torch.pipeline.graphs import Programs
 from gnumap_tpu_torch.pipeline.staging import StagingRing
 
 SENTINEL = np.iinfo(np.int32).max
@@ -536,6 +537,11 @@ def _segmented(comb, vals, seg, reverse=False):
     return out
 
 
+# the per-hit rows device_accumulate reads
+ACC_ROW_KEYS = ("valid_h", "row_h", "score_h", "len_h", "ops", "jfin",
+                "cand_h", "n_valid", "n_keep")
+
+
 def device_accumulate(cfg: MapperConfig, B: int, pwm2, rows: dict, cov,
                       tal, n_live: int) -> torch.Tensor:
     """[FROZEN v5] On-device coverage / SNP-tally accumulation
@@ -846,6 +852,9 @@ class TorchMapper:
         # overflow fallback, which stages from inside a finish
         self._ring = StagingRing(self.device, STREAM_DEPTH + 1)
         self._spare = StagingRing(self.device, 1)
+        # the device programs the JAX package jits, captured on a card at
+        # their first call for a batch shape and replayed after it
+        self._programs = Programs(self.device)
         if accumulate == "device":
             self.reset_accumulators()
 
@@ -997,18 +1006,13 @@ class TorchMapper:
         batch in flight has not touched them, and a resume replays it
         without double counting."""
         slot = self._ring.acquire()
-        lens = slot.upload("lens", np.asarray(batch.lens, np.int32))
-        if batch.pwm_arr is None:
-            out = self._device_map_acc_q(
-                slot.upload("packed", pack_reads(batch.codes, batch.quals)),
-                lens)
-        else:
-            out = self._device_map_acc(
-                slot.upload("codes", np.asarray(batch.codes, np.int8)),
-                slot.upload("pwm", np.asarray(batch.pwm_arr, np.int32)),
-                lens)
-        blob, rows, nvk, pwm2 = out
-        return (rows, pwm2, slot.fetch("nvk", nvk),
+        blob, rows, nvk, pwm2 = self._run_program(
+            slot, batch, self._device_map_acc_q, self._device_map_acc)
+        # finish_acc reads rows and pwm2 after up to STREAM_DEPTH later
+        # submits, and a replay's outputs are overwritten by the next one:
+        # the batch keeps copies of its own
+        rows = {k: rows[k].clone() for k in ACC_ROW_KEYS}
+        return (rows, pwm2.clone(), slot.fetch("nvk", nvk),
                 slot.fetch("blob", blob) if self.cfg.sam_out else None)
 
     def finish_acc(self, batch: ReadBatch, dev_out,
@@ -1096,10 +1100,26 @@ class TorchMapper:
         [cands | scores | max_sc] blob, staged in a slot of its own and on
         its way back (the pair finish_host takes)."""
         slot = self._spare.acquire()
-        return slot.fetch("blob", self._device_map_packed(
-            slot.upload("codes", np.asarray(batch.codes, np.int8)),
-            slot.upload("pwm", np.asarray(batch.pwm_q, np.int32)),
-            slot.upload("lens", np.asarray(batch.lens, np.int32))))
+        return slot.fetch("blob", self._programs(
+            self._device_map_packed, slot,
+            codes=np.asarray(batch.codes, np.int8),
+            pwm=np.asarray(batch.pwm_q, np.int32),
+            lens=np.asarray(batch.lens, np.int32)))
+
+    def _run_program(self, slot, batch: ReadBatch, fn_q, fn):
+        """``fn_q`` on the batch's packed reads (quality-derived batches,
+        pwm_arr None) or ``fn`` on its codes and PWMs, with its lengths,
+        staged through ``slot``: eager on the CPU, a captured program
+        replayed on a card (pipeline/graphs.py)."""
+        lens = np.asarray(batch.lens, np.int32)
+        if batch.pwm_arr is None:
+            return self._programs(
+                fn_q, slot, packed=pack_reads(batch.codes, batch.quals),
+                lens=lens)
+        return self._programs(fn, slot,
+                              codes=np.asarray(batch.codes, np.int8),
+                              pwm=np.asarray(batch.pwm_arr, np.int32),
+                              lens=lens)
 
     # ------------------------------------------------------------------
     # Host finishing
@@ -1111,22 +1131,18 @@ class TorchMapper:
         buffers with non_blocking, the D2H copy lands in a pinned buffer,
         and an event marks its end, so map_stream overlaps device work with
         the host finish of earlier batches.  Quality-derived batches
-        (pwm_arr None) ship quals and rebuild the PWM on the device."""
+        (pwm_arr None) ship quals and rebuild the PWM on the device.  On a
+        card the program is a captured graph, replayed once a batch
+        (pipeline/graphs.py); the blob's copy follows the replay on the
+        same stream, before the next replay can overwrite it."""
         if self.accumulate == "device":
             return self._submit_acc(batch)
-        dev = self.finish_impl == "device"
         slot = self._ring.acquire()
-        lens = slot.upload("lens", np.asarray(batch.lens, np.int32))
-        if batch.pwm_arr is None:
-            fn = self._device_map_tb_q if dev else self._device_map_packed_q
-            blob = fn(slot.upload("packed",
-                                  pack_reads(batch.codes, batch.quals)), lens)
+        if self.finish_impl == "device":
+            fns = self._device_map_tb_q, self._device_map_tb
         else:
-            fn = self._device_map_tb if dev else self._device_map_packed
-            blob = fn(slot.upload("codes", np.asarray(batch.codes, np.int8)),
-                      slot.upload("pwm", np.asarray(batch.pwm_arr, np.int32)),
-                      lens)
-        return slot.fetch("blob", blob)
+            fns = self._device_map_packed_q, self._device_map_packed
+        return slot.fetch("blob", self._run_program(slot, batch, *fns))
 
     def finish(self, batch: ReadBatch, dev_out,
                stats: Optional[BatchStats] = None) -> List[List[ReadHit]]:

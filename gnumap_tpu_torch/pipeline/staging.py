@@ -24,10 +24,13 @@ ring has ``depth`` + 1 slots; the capacity-overflow fallback, which stages
 one batch more from inside a finish, has a ring of one slot of its own.  A
 caller that holds more slots than its ring has raises rather than waits.
 
-On the CPU the buffers are plain tensors, the "device" tensor of an upload
-is the buffer itself and nothing is recorded, so the same reuse logic runs
-in the tests without a card.  A pinned allocation that fails raises: there
-is no pageable fallback.
+On a card whose mapper replays a captured program (pipeline/graphs.py) an
+upload lands in the program's static input, and the blob's copy is queued
+right behind the replay on the same stream, so the next replay overwrites
+the static output only after that copy.  On the CPU the buffers are plain
+tensors, the "device" tensor of an upload is the buffer itself and nothing
+is recorded, so the same reuse logic runs in the tests without a card.  A
+pinned allocation that fails raises: there is no pageable fallback.
 """
 
 from __future__ import annotations
@@ -78,17 +81,23 @@ class Slot:
         self.event.record()
         return self.event
 
-    def upload(self, name: str, arr) -> torch.Tensor:
+    def upload(self, name: str, arr, out: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
         """``arr`` on the ring's device, through the buffer ``name``: a
-        non_blocking copy on a card, the buffer itself on the CPU."""
+        non_blocking copy on a card, the buffer itself on the CPU.  With
+        ``out`` (a captured program's static input, pipeline/graphs.py) the
+        copy lands there, and ``out`` is returned."""
         src = torch.from_numpy(np.ascontiguousarray(arr))
         host = self.view(name, src.shape, src.dtype)
         host.copy_(src)
-        if not self._ring.pinned:
+        if out is not None:
+            out.copy_(host, non_blocking=self._ring.pinned)
+        elif not self._ring.pinned:
             return host
-        dev = host.to(self._ring.device, non_blocking=True)
+        else:
+            out = host.to(self._ring.device, non_blocking=True)
         self.record()
-        return dev
+        return out
 
     def fetch(self, name: str, blob: torch.Tensor
               ) -> Tuple[torch.Tensor, Optional["torch.cuda.Event"]]:

@@ -188,7 +188,8 @@ def test_profile_stages_on_the_cpu(small_mer):
     w = tbench.build_workload(64, 50_000, 32, config=2)
     prof = tbench.profile_stages(*w, "cpu", reps=1)
     assert prof["batch"] == 32 and prof["clock"] == "host perf_counter"
-    for k in tbench.PROFILE_KEYS + ("sum_of_stages_ms", "submit_ms"):
+    for k in tbench.PROFILE_KEYS + ("sum_of_stages_ms", "submit_ms",
+                                    "submit_eager_ms"):
         assert np.isfinite(prof[k]), k
     t = prof["prefix_ms"]
     assert prof["sum_of_stages_ms"] == pytest.approx(t["full"])

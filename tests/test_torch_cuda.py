@@ -16,7 +16,11 @@ index mesh (dist/collectives.DistMapper) on the card, in a world of one
 rank on NCCL and of two ranks sharing the card over gloo, against
 TorchMapper on the card; the staging ring (pipeline/staging.py) behind slow
 device work; the benchmark driver's kernel bit check and stage profile
-(gnumap_tpu_torch/bench.py).
+(gnumap_tpu_torch/bench.py); the captured device programs
+(pipeline/graphs.py): each replay's outputs equal the eager program's bit
+for bit, launches counted through replays, the capacity-overflow fallback
+through its own captured program, and a stream with the staging ring full
+equal to the eager programs' on the card.
 """
 
 import numpy as np
@@ -753,8 +757,10 @@ def test_bench_bitcheck_and_profile_on_card():
     """gnumap_tpu_torch.bench on the card: kernel_bitcheck through the CUDA
     kernels (B1 scores, B3 tracebacks, B2 pure verdicts held to the
     oracle), and profile_stages on a bench config 2 batch at a small genome:
-    every stage finite, the stages telescoping to sum_of_stages_ms within
-    15% of the mapper's own submit, and B1, B2 and B3 launched."""
+    every stage finite, the stages (eager prefixes of the program)
+    telescoping to sum_of_stages_ms within 15% of the mapper's own submit
+    with its program run eagerly, the submit through the captured graph
+    finite, and B1, B2 and B3 launched."""
     from gnumap_tpu_torch import bench
     _card()
     ok, n, detail = bench.kernel_bitcheck("cuda")
@@ -763,9 +769,178 @@ def test_bench_bitcheck_and_profile_on_card():
     for mod in (nw_band, nw_pure, nw_tb):
         mod.LAUNCHES = 0
     prof = bench.profile_stages(*w, "cuda")
-    for k in bench.PROFILE_KEYS + ("sum_of_stages_ms", "submit_ms"):
+    for k in bench.PROFILE_KEYS + ("sum_of_stages_ms", "submit_ms",
+                                   "submit_eager_ms"):
         assert np.isfinite(prof[k]), k
     assert prof["batch"] == 1024
-    assert abs(prof["sum_of_stages_ms"] - prof["submit_ms"]) \
-        <= 0.15 * prof["submit_ms"], prof
+    assert abs(prof["sum_of_stages_ms"] - prof["submit_eager_ms"]) \
+        <= 0.15 * prof["submit_eager_ms"], prof
     assert min(nw_band.LAUNCHES, nw_pure.LAUNCHES, nw_tb.LAUNCHES) > 0
+
+
+# ---------------------------------------------------------------------------
+# Captured device programs (pipeline/graphs.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_PROGRAMS = ("_device_map_tb_q", "_device_map_tb",
+                  "_device_map_packed_q", "_device_map_packed",
+                  "_device_map_acc_q", "_device_map_acc")
+
+
+def _graph_workload(setup, n_reads=768, hit_capacity=1, seed=3):
+    """A mapper's inputs for ``setup`` (an index kind, or "unbanded": CSR at
+    gap_slack 16): config, genome, index and batches of 256 reads."""
+    bs = setup.endswith("_bs")
+    cfg = MapperConfig(mer_size=12, seed_jump=5, batch_size=256,
+                       max_read_len=104, max_candidates=32, bisulfite=bs,
+                       gap_slack=16 if setup == "unbanded" else 8,
+                       hit_capacity=hit_capacity, sam_out=True,
+                       sgr_out=True, snp_mode=True)
+    g = sim.random_genome(200_000, seed=seed, repeat_frac=0.02)
+    gen = builder.Genome.from_contigs([("ref_sim", g)])
+    idx = {"csr": builder.build_index, "unbanded": builder.build_index,
+           "csr_bs": builder.build_bs_index, "fm": fm.build_fm_index,
+           "fm_bs": fm.build_bs_fm_index}[setup](gen, cfg)
+    reads = sim.simulate_reads(g, n_reads, 100, seed=seed + 1,
+                               sub_rate=0.01, indel_rate=0.05,
+                               contig="ref_sim", bisulfite=bs)
+    recs = [io_fastq.ReadRecord(
+        r.name, packing.encode(r.seq), None,
+        (np.frombuffer(r.qual.encode(), np.uint8) - 33).astype(np.int16))
+        for r in reads]
+    return cfg, gen, idx, list(io_fastq.batch_reads(iter(recs), cfg))
+
+
+def _program_arrays(program, batch):
+    lens = np.asarray(batch.lens, np.int32)
+    if program.endswith("_q"):
+        return dict(packed=tm.pack_reads(batch.codes, batch.quals),
+                    lens=lens)
+    return dict(codes=np.asarray(batch.codes, np.int8),
+                pwm=np.asarray(batch.pwm_q, np.int32), lens=lens)
+
+
+@pytest.mark.parametrize("setup", ["csr", "unbanded", "csr_bs", "fm",
+                                   "fm_bs"])
+@pytest.mark.parametrize("program", GRAPH_PROGRAMS)
+def test_graph_outputs_equal_eager_program(program, setup):
+    """Each program the mapper captures, on three batches of other reads
+    at one shape, each twice: every output of the warm-up and of each
+    replay equals the eager program's on the same inputs, bit for bit; one
+    capture, five replays."""
+    from torch.utils import _pytree as pytree
+    from gnumap_tpu_torch.pipeline.staging import StagingRing
+    dev = _card()
+    cfg, gen, idx, batches = _graph_workload(setup)
+    assert len(batches) == 3
+    m = tm.TorchMapper(gen, idx, cfg, device=dev)
+    fn = getattr(m, program)
+    ring = StagingRing(dev, 2)
+    for _ in range(2):
+        for b in batches:
+            arrays = _program_arrays(program, b)
+            got = pytree.tree_leaves(m._programs(fn, ring.acquire(),
+                                                 **arrays))
+            want = pytree.tree_leaves(fn(*(
+                torch.from_numpy(a).to(dev) for a in arrays.values())))
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w)
+    (cap,) = m._programs.captured.values()
+    assert cap.replays == 5 and m._programs.pool_bytes() > 0
+
+
+@pytest.mark.parametrize("n_calls", [1, 3, 6])
+def test_graph_launches_equal_eager_runs(n_calls):
+    """LAUNCHES after a warm-up and n_calls - 1 replays equal n_calls times
+    an eager run's, kernel by kernel."""
+    from gnumap_tpu_torch.pipeline import graphs
+    dev = _card()
+    cfg, gen, idx, batches = _graph_workload("csr")
+    m = tm.TorchMapper(gen, idx, cfg, device=dev)
+    b = batches[0]
+    t = {k: torch.from_numpy(a).to(dev)
+         for k, a in _program_arrays("_device_map_tb_q", b).items()}
+    n0 = graphs._counts()
+    m._device_map_tb_q(*t.values())
+    eager = [a - z for a, z in zip(graphs._counts(), n0)]
+    assert eager[graphs.KERNEL_MODULES.index(nw_band)] == 1
+    n0 = graphs._counts()
+    for _ in range(n_calls):
+        m.submit(b)
+    torch.cuda.synchronize()
+    assert [a - z for a, z in zip(graphs._counts(), n0)] == \
+        [n_calls * e for e in eager]
+
+
+def test_graph_capacity_overflow_mid_stream_remaps():
+    """Batches whose hits overflow the device finish's capacity (hit
+    capacity 1 on reads planted in repeat copies) are re-mapped by
+    _remap_packed, through the packed program captured beside the tb
+    program: the stream's SAM records and coverage equal the CPU's."""
+    dev = _card()
+    cfg = MapperConfig(mer_size=12, seed_jump=5, batch_size=128,
+                       max_read_len=104, max_candidates=32, hit_capacity=1,
+                       sam_out=True, sgr_out=True)
+    g, spots = sim.random_genome_families(200_000, seed=9, n_families=8,
+                                          copies=12, unit_len=300)
+    gen = builder.Genome.from_contigs([("ref_sim", g)])
+    idx = builder.build_index(gen, cfg)
+    starts = np.concatenate(spots)[:, None] + np.arange(0, 200, 40)
+    # batches 1 and 3 plain reads, 2 and 4 reads inside the copies
+    parts = []
+    for k in range(4):
+        parts += (sim.simulate_reads(g, 128, 100, seed=20 + k,
+                                     sub_rate=0.01, contig="ref_sim")
+                  if k % 2 == 0 else
+                  sim.simulate_reads(g, 128, 100, seed=20 + k,
+                                     sub_rate=0.01, contig="ref_sim",
+                                     positions=starts.ravel()))
+    recs = [io_fastq.ReadRecord(
+        r.name, packing.encode(r.seq), None,
+        (np.frombuffer(r.qual.encode(), np.uint8) - 33).astype(np.int16))
+        for r in parts]
+    out = {}
+    for d in (dev, "cpu"):
+        m = tm.TorchMapper(gen, idx, cfg, device=d)
+        res = tm.map_stream(m, io_fastq.batch_reads(iter(recs), cfg))
+        out[str(d)] = ("".join(res.sam_lines), res.coverage,
+                       res.stats.n_mapped)
+        if d == dev:
+            names = sorted(k[0] for k in m._programs.captured)
+            assert names == ["_device_map_packed", "_device_map_tb_q"]
+    assert out["cuda"][0] == out["cpu"][0]
+    assert np.array_equal(out["cuda"][1], out["cpu"][1])
+    assert out["cuda"][2] == out["cpu"][2] > 400
+
+
+@pytest.mark.parametrize("path", ["device", "host", "acc"])
+def test_graph_stream_with_the_ring_full_equals_eager(path):
+    """map_stream at depth 3 through the graphs, with a spin of about 20 ms
+    queued before each submit so that every slot of the ring is in flight:
+    the hits, SAM records, coverage and tallies of the eager programs on
+    the card."""
+    dev = _card()
+    cfg, gen, idx, batches = _graph_workload("csr", n_reads=2048,
+                                             hit_capacity=4)
+    kw = dict(finish_impl="host") if path == "host" else (
+        dict(accumulate="device") if path == "acc" else {})
+    out = {}
+    for graphed in (True, False):
+        m = tm.TorchMapper(gen, idx, cfg, device=dev, **kw)
+        m._programs.graphed = graphed
+        submit = m.submit
+
+        def slow_submit(batch, _submit=submit):
+            torch.cuda._sleep(40_000_000)
+            return _submit(batch)
+
+        m.submit = slow_submit
+        res = tm.map_stream(m, iter(batches), collect_sam=True)
+        out[graphed] = (res.sam_lines, res.coverage, res.tallies,
+                        res.stats.n_mapped)
+        assert len(m._programs.captured) == (1 if graphed else 0)
+    assert out[True][0] == out[False][0]
+    assert np.array_equal(out[True][1], out[False][1])
+    assert np.array_equal(out[True][2], out[False][2])
+    assert out[True][3] == out[False][3] > 1900

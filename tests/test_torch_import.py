@@ -33,7 +33,7 @@ for want in ("config", "core.packing", "core.pwm", "align.scoring",
              "utils.sim", "pipeline.mapper", "cli.main", "index.fm",
              "dist.segments", "dist.mesh", "dist.collectives",
              "dist.multihost", "utils.profiling", "pipeline.staging",
-             "bench"):
+             "pipeline.graphs", "bench"):
     assert "gnumap_tpu_torch." + want in names, want
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "gnumap_tpu", "bench"))
