@@ -14,7 +14,11 @@ is reached through the API, ``TorchMapper(..., finish_impl="host")``.
 ``-b`` maps bisulfite reads (the per-strand collapsed index pair),
 ``--index-type fm`` seeds from the FM index, and ``--segments N`` (or a
 genome past SEG_LIMIT) splits the genome into contig-aligned segments, one
-index and one device state each (dist/segments.py).
+index and one device state each (dist/segments.py).  ``-v`` prints a line a
+batch with its spans' milliseconds and the collector's pauses
+(utils/profiling.py); the ``done`` line carries the map's totals by span and
+the counters; ``--profile DIR`` maps inside ``profiling.trace(DIR)``, a
+Chrome trace of the host and the card in which every span shows by name.
 
 Multi-host runs start one process per rank with ``--num-hosts N --host-id h
 --coordinator host:port`` (rank 0's address; torch.distributed, NCCL when
@@ -34,6 +38,7 @@ each rank has a card of its own, gloo otherwise):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -47,6 +52,7 @@ from gnumap_tpu_torch.dist.segments import SEG_LIMIT, GlobalSegmentedMapper
 from gnumap_tpu_torch.index import builder, fm, store
 from gnumap_tpu_torch.io import fastq as io_fastq, sam as sam_io, sgr as sgr_io
 from gnumap_tpu_torch.pipeline import checkpoint as ckpt, mapper as pl
+from gnumap_tpu_torch.utils import profiling
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -125,7 +131,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "aligned segments ('auto': segments only past the "
                         "int32 limit)")
     p.add_argument("-v", "--verbose", action="store_true",
-                   help="per-batch JSONL stats on stderr (ref -v)")
+                   help="per-batch JSONL stats on stderr (ref -v), with "
+                        "the batch's span milliseconds and collector "
+                        "pauses")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="map inside a torch.profiler trace of the host "
+                        "and the card, written as a Chrome trace "
+                        "DIR/trace.<pid>.json; the stream's spans show in "
+                        "it by name")
     p.add_argument("--num-hosts", type=int, default=1,
                    help="multi-host run: total torch.distributed processes "
                         "(the reference's mpirun -np R); one device each")
@@ -201,6 +214,18 @@ _ACC_REFUSAL = ("--accumulate device is the single-device TpuMapper path; "
                 "segmented and sharded runs use host accumulation")
 _FM_REFUSAL = ("--index-type fm is single-device; the sharded path shards "
                "the CSR table (use --index-type csr)")
+
+
+def span_totals(t0: int, t1: int) -> dict:
+    """The stream's spans that started in [t0, t1] (perf_counter_ns), in
+    ms by name, and the collector's pauses in ms by generation; a
+    quantity the span ring no longer holds is None."""
+    tot = profiling.totals_ns(t0, t1)
+    gc_ms = [profiling.gc_ns(t0, t1, g) for g in range(3)]
+    return {"spans_ms": None if tot is None else
+            {k: round(v * 1e-6, 3) for k, v in tot.items()},
+            "gc_ms": [None if v is None else round(v * 1e-6, 3)
+                      for v in gc_ms]}
 
 
 def _check_sharding(args) -> bool:
@@ -338,7 +363,12 @@ def main(argv=None) -> int:
     genome_partitioned = shards and segmented
     callbacks = []
     if args.verbose:
+        # each line: the spans since the previous line (that batch's finish
+        # and emission, the next batch's parse and submit)
+        t_line = [time.perf_counter_ns()]
+
         def _vcb(idx, s):
+            now = time.perf_counter_ns()
             print(json.dumps({
                 "event": "batch", "batch": idx, "reads": s.n_reads,
                 "mapped": s.n_mapped, "multi": s.n_multi,
@@ -346,7 +376,9 @@ def main(argv=None) -> int:
                     s.n_candidates / max(1, s.n_reads), 2),
                 "dp_cells": s.dp_cells,
                 "device_s": round(s.device_s, 3),
-                "host_s": round(s.host_s, 3)}), file=sys.stderr)
+                "host_s": round(s.host_s, 3),
+                **span_totals(t_line[0], now)}), file=sys.stderr)
+            t_line[0] = now
         callbacks.append(_vcb)
     if sam_bin is not None and genome_partitioned:
         # per-RECORD index rows (batch, read, key) aligned with the shard
@@ -443,13 +475,17 @@ def main(argv=None) -> int:
             batches = multihost.strided(batches, args.num_hosts,
                                         args.host_id)
     t1 = time.perf_counter()
-    res = pl.map_stream(
-        m, batches,
-        collect_sam=False, sam_file=sam_f,
-        checkpoint_path=args.checkpoint,
-        checkpoint_every=args.checkpoint_every,
-        batch_callback=cb)
+    t1_ns = time.perf_counter_ns()
+    with (profiling.trace(args.profile) if args.profile
+          else contextlib.nullcontext()):
+        res = pl.map_stream(
+            m, batches,
+            collect_sam=False, sam_file=sam_f,
+            checkpoint_path=args.checkpoint,
+            checkpoint_every=args.checkpoint_every,
+            batch_callback=cb)
     t_map = time.perf_counter() - t1
+    map_spans = span_totals(t1_ns, time.perf_counter_ns())
     if shards:
         # cross-host merge: coverage/tallies by deterministic bit-exact
         # all-gather + host-ordered sum (the MPI_Reduce analog); SAM by
@@ -502,7 +538,8 @@ def main(argv=None) -> int:
         "map_s": round(t_map, 3),
         "reads_per_s": round(s.n_reads / max(t_map, 1e-9), 1),
         "dp_cells_per_s": round(s.dp_cells / max(t_map, 1e-9), 1),
-        "device_s": round(s.device_s, 3), "host_s": round(s.host_s, 3)}
+        "device_s": round(s.device_s, 3), "host_s": round(s.host_s, 3),
+        **map_spans, "counters": profiling.counters()}
     if multi or sharded:
         done["collectives"] = dataclasses.asdict(mesh_mod.COMM)
     if m.device.type == "cuda":

@@ -21,6 +21,7 @@ logger = logging.getLogger("gnumap_tpu_torch.io")
 
 from gnumap_tpu_torch.config import MapperConfig
 from gnumap_tpu_torch.core import packing, pwm as pwm_mod
+from gnumap_tpu_torch.utils import profiling
 
 
 def read_fasta(path: str) -> List[Tuple[str, str]]:
@@ -324,16 +325,20 @@ def batch_reads_native(path: str, cfg: MapperConfig, start: int = 0,
         remaining = None if stop is None else stop - start
         while True:
             want = CHUNK if remaining is None else min(CHUNK, remaining)
-            data = f.read(want) if want else b""
+            with profiling.span("io.read"):
+                data = f.read(want) if want else b""
+                chunk = tail + data
             if remaining is not None:
                 remaining -= len(data)
             eof = not data
-            chunk = tail + data
             if not chunk:
                 break
-            names, codes, quals, lens, consumed, chunk_trunc = \
-                native_lib.parse_fastq_chunk(chunk, 4 * B, L,
-                                             cfg.phred_offset, is_final=eof)
+            profiling.COUNTS["io.chunks"] += 1
+            with profiling.span("io.parse_chunk"):
+                names, codes, quals, lens, consumed, chunk_trunc = \
+                    native_lib.parse_fastq_chunk(chunk, 4 * B, L,
+                                                 cfg.phred_offset,
+                                                 is_final=eof)
             if chunk_trunc and n_trunc == 0:
                 logger.warning(
                     "%s: reads exceed max_read_len=%d; truncating "
@@ -341,7 +346,8 @@ def batch_reads_native(path: str, cfg: MapperConfig, start: int = 0,
             n_trunc += chunk_trunc
             if consumed == 0 and eof and not names:
                 break
-            tail = chunk[consumed:]
+            with profiling.span("io.tail"):
+                tail = chunk[consumed:]
             i = 0
             while i < len(names):
                 take = min(B - len(pend_names), len(names) - i)

@@ -33,7 +33,6 @@ the caller asked for the CPU.
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, List, Tuple
 
 import numpy as np
@@ -42,6 +41,7 @@ from torch.utils import _pytree as pytree
 
 from gnumap_tpu_torch.align import nw_band, nw_full, nw_pure, nw_tb
 from gnumap_tpu_torch.posterior import accum
+from gnumap_tpu_torch.utils import profiling
 
 # the modules whose kernel wrappers count their launches (LAUNCHES)
 KERNEL_MODULES = (nw_band, nw_full, nw_pure, nw_tb, accum)
@@ -55,7 +55,8 @@ class Captured:
     """One program captured for one key: the graph, its static inputs by
     name, its static outputs (the program's own structure), the launches
     of one run by kernel module, and the host seconds of its warm-up and
-    of its capture."""
+    of its capture (the graphs.warm_up and graphs.capture spans,
+    utils/profiling.py)."""
 
     def __init__(self, graph, inputs: Dict[str, torch.Tensor], outputs,
                  launches: List[Tuple[object, int]], warm_up_s: float,
@@ -99,25 +100,27 @@ class Programs:
         CPU; on a card the first call of a key warms up and captures, every
         later one replays."""
         if not self.graphed:
-            return fn(*(slot.upload(k, a) for k, a in arrays.items()))
+            with profiling.span("graphs.replay"):
+                return fn(*(slot.upload(k, a) for k, a in arrays.items()))
         key = self.key(fn, arrays)
         cap = self.captured.get(key)
         if cap is not None:
-            for k, a in arrays.items():
-                slot.upload(k, a, out=cap.inputs[k])
-            return self._replay(cap)
+            with profiling.span("graphs.replay"):
+                for k, a in arrays.items():
+                    slot.upload(k, a, out=cap.inputs[k])
+                return self._replay(cap)
         inputs = {k: torch.empty(a.shape, dtype=torch.from_numpy(
             np.empty(0, a.dtype)).dtype, device=self.device)
             for k, a in arrays.items()}
         for k, a in arrays.items():
             slot.upload(k, a, out=inputs[k])
         args = tuple(inputs.values())
-        t0 = time.perf_counter()
-        out = self._warm_up(fn, args)
-        t1 = time.perf_counter()
+        with profiling.span("graphs.warm_up") as warm:
+            out = self._warm_up(fn, args)
         before = _counts()
         try:
-            graph, outputs = self._capture(fn, args)
+            with profiling.span("graphs.capture") as capture:
+                graph, outputs = self._capture(fn, args)
         finally:
             after = _counts()
             for mod, n in zip(KERNEL_MODULES, before):
@@ -125,7 +128,7 @@ class Programs:
         self.captured[key] = Captured(
             graph, inputs, outputs,
             [(m, a - b) for m, a, b in zip(KERNEL_MODULES, after, before)
-             if a != b], t1 - t0, time.perf_counter() - t1)
+             if a != b], warm.seconds, capture.seconds)
         return out
 
     def _replay(self, cap: Captured):

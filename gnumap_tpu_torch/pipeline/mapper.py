@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -61,6 +60,7 @@ from gnumap_tpu_torch.oracle import oracle
 from gnumap_tpu_torch.align import nw_band, nw_full, nw_pure, nw_ref, nw_tb
 from gnumap_tpu_torch.pipeline.graphs import Programs
 from gnumap_tpu_torch.pipeline.staging import StagingRing
+from gnumap_tpu_torch.utils import profiling
 
 SENTINEL = np.iinfo(np.int32).max
 # batches map_stream keeps in flight behind the one it finishes
@@ -89,8 +89,9 @@ class BatchStats:
                                # candidate
     dp_cells_banded: int = 0   # cells the banded kernel computes: L x bw
                                # per candidate
-    device_s: float = 0.0
-    host_s: float = 0.0
+    device_s: float = 0.0      # the finish's wait for the device and its
+                               # copy (finish.wait spans), not device time
+    host_s: float = 0.0        # the finish's host work (finish.decode)
 
 
 def _cells_per_cand(cfg: "MapperConfig"):
@@ -1028,42 +1029,46 @@ class TorchMapper:
         H = cfg.hit_capacity * 2 * B
         K = max(64, H // 32)
         rows, pwm2, (nvk, nvk_done), blob_out = dev_out
-        t0 = time.perf_counter()
-        if nvk_done is not None:
-            nvk_done.synchronize()
-        n_valid, n_keep, n_indel = (int(x) for x in nvk.tolist())
+        with profiling.span("finish.wait") as w0:
+            if nvk_done is not None:
+                nvk_done.synchronize()
+            n_valid, n_keep, n_indel = (int(x) for x in nvk.tolist())
         if n_keep > H or n_indel > K:
             return self._finish_acc_overflow(batch, n_keep, n_indel,
-                                             n_valid, stats, t0)
-        stvec = self._apply_acc(rows, pwm2, n_keep)
-        if cfg.sam_out:
-            blob, done = blob_out
-            if done is not None:
-                done.synchronize()
-            t1 = time.perf_counter()
-            out, n_keep, n_valid = decode_tb_blob(
-                cfg, B, batch.n, batch.lens, blob.numpy())   # caps checked
-            n_mapped = sum(1 for hh in out if hh)
-            n_multi = sum(1 for hh in out if len(hh) > 1)
-        else:
-            arr = stvec.cpu().numpy()      # waits for the accumulate program
-            t1 = time.perf_counter()
-            n_mapped, n_multi, n_valid, n_keep = (int(x) for x in arr)
-            out = [[] for _ in range(batch.n)]
+                                             n_valid, stats, w0.seconds)
+        with profiling.span("finish.accumulate"):
+            stvec = self._apply_acc(rows, pwm2, n_keep)
+        with profiling.span("finish.wait") as w1:
+            if cfg.sam_out:
+                blob, done = blob_out
+                if done is not None:
+                    done.synchronize()
+                arr = blob.numpy()
+            else:
+                arr = stvec.cpu().numpy()  # waits for the accumulate program
+        with profiling.span("finish.decode") as d:
+            if cfg.sam_out:
+                out, n_keep, n_valid = decode_tb_blob(
+                    cfg, B, batch.n, batch.lens, arr)   # caps checked
+                n_mapped = sum(1 for hh in out if hh)
+                n_multi = sum(1 for hh in out if len(hh) > 1)
+            else:
+                n_mapped, n_multi, n_valid, n_keep = (int(x) for x in arr)
+                out = [[] for _ in range(batch.n)]
         if stats is not None:
             _add_stats(stats, cfg, batch.n, n_mapped, n_multi, n_valid,
-                       t1 - t0, time.perf_counter() - t1)
+                       w0.seconds + w1.seconds, d.seconds)
         return out
 
     def _finish_acc_overflow(self, batch: ReadBatch, n_keep: int,
                              n_indel: int, n_valid: int,
-                             stats: Optional[BatchStats], t0: float
+                             stats: Optional[BatchStats], wait_s: float
                              ) -> List[List[ReadHit]]:
         """Capacity-overflow fallback: the batch's deltas were not applied,
         so it is re-mapped on the exact host-finish path and its float64
         contributions fold into the device accumulators (fetch -> ordered
         host scatter -> f32 again).  Raise cfg.hit_capacity if this fires
-        on every batch."""
+        on every batch.  ``wait_s``: the finish's wait so far."""
         import logging
         cfg = self.cfg
         H = cfg.hit_capacity * 2 * batch.codes.shape[0]
@@ -1071,21 +1076,25 @@ class TorchMapper:
             "device-accumulation capacity overflow (n_keep=%d > H=%d or "
             "n_indel=%d > K=%d): exact host-path fallback for this batch",
             n_keep, H, n_indel, max(64, H // 32))
-        out = self.finish_host(batch, self._remap_packed(batch), None)
-        t1 = time.perf_counter()
-        cov, tal = self.fetch_accumulators()
-        _scatter_coverage(cov, [(h.pos, h.ref_len, h.weight)
-                                for hits in out for h in hits])
-        if cfg.snp_mode:
-            _scatter_tallies(tal, batch, [
-                (b, h.strand == "-", h.pos, h.weight,
-                 None if h.cigar == f"{int(batch.lens[b])}M" else h.cigar)
-                for b, hits in enumerate(out) for h in hits])
-        self.load_accumulators(cov, tal)
+        profiling.COUNTS["finish.overflow"] += 1
+        fallback = BatchStats()
+        out = self.finish_host(batch, self._remap_packed(batch), fallback)
+        with profiling.span("finish.decode") as d:
+            cov, tal = self.fetch_accumulators()
+            _scatter_coverage(cov, [(h.pos, h.ref_len, h.weight)
+                                    for hits in out for h in hits])
+            if cfg.snp_mode:
+                _scatter_tallies(tal, batch, [
+                    (b, h.strand == "-", h.pos, h.weight,
+                     None if h.cigar == f"{int(batch.lens[b])}M"
+                     else h.cigar)
+                    for b, hits in enumerate(out) for h in hits])
+            self.load_accumulators(cov, tal)
         if stats is not None:
             _add_stats(stats, cfg, batch.n, sum(1 for hh in out if hh),
                        sum(1 for hh in out if len(hh) > 1), n_valid,
-                       t1 - t0, time.perf_counter() - t1)
+                       wait_s + fallback.device_s,
+                       fallback.host_s + d.seconds)
         return out
 
     @staticmethod
@@ -1113,9 +1122,9 @@ class TorchMapper:
         replayed on a card (pipeline/graphs.py)."""
         lens = np.asarray(batch.lens, np.int32)
         if batch.pwm_arr is None:
-            return self._programs(
-                fn_q, slot, packed=pack_reads(batch.codes, batch.quals),
-                lens=lens)
+            with profiling.span("submit.pack"):
+                packed = pack_reads(batch.codes, batch.quals)
+            return self._programs(fn_q, slot, packed=packed, lens=lens)
         return self._programs(fn, slot,
                               codes=np.asarray(batch.codes, np.int8),
                               pwm=np.asarray(batch.pwm_arr, np.int32),
@@ -1135,38 +1144,41 @@ class TorchMapper:
         card the program is a captured graph, replayed once a batch
         (pipeline/graphs.py); the blob's copy follows the replay on the
         same stream, before the next replay can overwrite it."""
-        if self.accumulate == "device":
-            return self._submit_acc(batch)
-        slot = self._ring.acquire()
-        if self.finish_impl == "device":
-            fns = self._device_map_tb_q, self._device_map_tb
-        else:
-            fns = self._device_map_packed_q, self._device_map_packed
-        return slot.fetch("blob", self._run_program(slot, batch, *fns))
+        with profiling.span("submit"):
+            if self.accumulate == "device":
+                return self._submit_acc(batch)
+            slot = self._ring.acquire()
+            if self.finish_impl == "device":
+                fns = self._device_map_tb_q, self._device_map_tb
+            else:
+                fns = self._device_map_packed_q, self._device_map_packed
+            return slot.fetch("blob", self._run_program(slot, batch, *fns))
 
     def finish(self, batch: ReadBatch, dev_out,
                stats: Optional[BatchStats] = None) -> List[List[ReadHit]]:
-        if self.accumulate == "device":
-            return self.finish_acc(batch, dev_out, stats)
-        if self.finish_impl == "device":
-            return self.finish_devtb(batch, dev_out, stats)
-        return self.finish_host(batch, dev_out, stats)
+        with profiling.span("finish"):
+            if self.accumulate == "device":
+                return self.finish_acc(batch, dev_out, stats)
+            if self.finish_impl == "device":
+                return self.finish_devtb(batch, dev_out, stats)
+            return self.finish_host(batch, dev_out, stats)
 
     def finish_host(self, batch: ReadBatch, dev_out,
                     stats: Optional[BatchStats] = None
                     ) -> List[List[ReadHit]]:
-        t0 = time.perf_counter()
-        blob, done = dev_out
-        if done is not None:
-            done.synchronize()
-        outputs = self.unpack_blob(blob.numpy(), self.cfg.max_candidates)
-        t1 = time.perf_counter()
-        out = host_finish(self.genome, self.S_plus_np, self.S_minus_np,
-                          self.cfg, batch, *outputs)
-        t2 = time.perf_counter()
+        with profiling.span("finish.wait") as w:
+            blob, done = dev_out
+            if done is not None:
+                done.synchronize()
+            arr = blob.numpy()
+        with profiling.span("finish.decode") as d:
+            outputs = self.unpack_blob(arr, self.cfg.max_candidates)
+            with profiling.span("finish.host"):
+                out = host_finish(self.genome, self.S_plus_np,
+                                  self.S_minus_np, self.cfg, batch, *outputs)
         if stats is not None:
             _update_stats(stats, self.cfg, batch, out, int(outputs[1].sum()),
-                          t1 - t0, t2 - t1)
+                          w.seconds, d.seconds)
         return out
 
     def finish_devtb(self, batch: ReadBatch, dev_out,
@@ -1175,14 +1187,14 @@ class TorchMapper:
         """Decode the device traceback blob: group hits per read, dedupe by
         (strand, pos), normalize posterior weights.  No DP on the host."""
         cfg = self.cfg
-        t0 = time.perf_counter()
-        blob, done = dev_out
-        if done is not None:
-            done.synchronize()
-        blob = blob.numpy()
-        t1 = time.perf_counter()
+        with profiling.span("finish.wait") as w:
+            blob, done = dev_out
+            if done is not None:
+                done.synchronize()
+            blob = blob.numpy()
         B = batch.codes.shape[0]
-        decoded = decode_tb_blob(cfg, B, batch.n, batch.lens, blob)
+        with profiling.span("finish.decode") as d:
+            decoded = decode_tb_blob(cfg, B, batch.n, batch.lens, blob)
         if decoded is None:
             # capacity overflow (extreme repeat / indel batch): re-map on
             # the host-finish path, on the same device — exact, just slower
@@ -1193,11 +1205,12 @@ class TorchMapper:
                 "device-finish hit-capacity overflow "
                 "(n_keep=%d n_indel=%d, H=%d K=%d): host-path fallback",
                 int(blob[-3]), int(blob[-1]), H, max(64, H // 32))
+            profiling.COUNTS["finish.overflow"] += 1
             return self.finish_host(batch, self._remap_packed(batch), stats)
         out, _, n_valid = decoded
         if stats is not None:
-            _update_stats(stats, cfg, batch, out, n_valid, t1 - t0,
-                          time.perf_counter() - t1)
+            _update_stats(stats, cfg, batch, out, n_valid, w.seconds,
+                          d.seconds)
         return out
 
     def map_batch(self, batch: ReadBatch,
@@ -1304,61 +1317,70 @@ def map_stream(mapper: TorchMapper, batches: Iterable[ReadBatch],
     _ck_fut: list = [None]
     try:
         for batch, hits_per_read in results():
-            if cfg.sam_out and not use_native_sam:
-                qbytes = (batch.quals[:batch.n] + 33).astype(np.uint8)
-            cov_rows: List[Tuple[int, int, float]] = []
-            tally_rows: List[Tuple[int, bool, int, float, Optional[str]]] = []
-            py_sam = cfg.sam_out and not use_native_sam
-            # genome-partitioned multi-host SAM: the mapper decides, per read,
-            # whether THIS host owns its records (segments.GlobalSegmentedMapper
-            # sets gp_sam each batch)
-            gp = (getattr(mapper, "gp_sam", None)
-                  if cfg.sam_out and getattr(mapper, "num_hosts", 1) > 1
-                  else None)
-            gp_host = getattr(mapper, "host_id", 0)
-            for b, hits in enumerate(hits_per_read):
-                L = int(batch.lens[b])
-                codes = batch.codes[b, :L]
-                if py_sam:
-                    seq = packing.decode(codes)
-                    qual = qbytes[b, :L].tobytes().decode("ascii")
-                else:
-                    seq = qual = ""
-                if not hits:
-                    if py_sam and not (gp is not None
-                                       and (bool(gp["mapped"][b])
-                                            or gp_host != 0)):
-                        emit(sam_io.unmapped_record(batch.names[b], seq, qual))
-                    continue
-                for hi, h in enumerate(hits):
-                    if coverage is not None:
-                        cov_rows.append((h.pos, h.ref_len, h.weight))
-                    if tallies is not None:
-                        pure = h.cigar == f"{L}M"
-                        tally_rows.append((b, h.strand == "-", h.pos, h.weight,
-                                           None if pure else h.cigar))
+            with profiling.span("stream.walk"):
+                if cfg.sam_out and not use_native_sam:
+                    qbytes = (batch.quals[:batch.n] + 33).astype(np.uint8)
+                cov_rows: List[Tuple[int, int, float]] = []
+                tally_rows: List[Tuple[int, bool, int, float,
+                                       Optional[str]]] = []
+                py_sam = cfg.sam_out and not use_native_sam
+                # genome-partitioned multi-host SAM: the mapper decides, per
+                # read, whether THIS host owns its records
+                # (segments.GlobalSegmentedMapper sets gp_sam each batch)
+                gp = (getattr(mapper, "gp_sam", None)
+                      if cfg.sam_out and getattr(mapper, "num_hosts", 1) > 1
+                      else None)
+                gp_host = getattr(mapper, "host_id", 0)
+                for b, hits in enumerate(hits_per_read):
+                    L = int(batch.lens[b])
+                    codes = batch.codes[b, :L]
                     if py_sam:
-                        ci, off = gen.locate(h.pos)
-                        sec = ((hi > 0) if h.primary is None
-                               else not h.primary)
-                        flag = (16 if h.strand == "-" else 0) | (
-                            256 if sec else 0)
-                        if h.strand == "-":
-                            oseq = packing.decode(packing.revcomp(codes))
-                            oqual = qual[::-1]
-                        else:
-                            oseq, oqual = seq, qual
-                        emit(sam_io.record(
-                            batch.names[b], flag, gen.names[int(ci)], int(off),
-                            sam_io.mapq_from_weight(h.weight), h.cigar,
-                            oseq, oqual, h.score, h.weight))
+                        seq = packing.decode(codes)
+                        qual = qbytes[b, :L].tobytes().decode("ascii")
+                    else:
+                        seq = qual = ""
+                    if not hits:
+                        if py_sam and not (gp is not None
+                                           and (bool(gp["mapped"][b])
+                                                or gp_host != 0)):
+                            emit(sam_io.unmapped_record(batch.names[b],
+                                                        seq, qual))
+                        continue
+                    for hi, h in enumerate(hits):
+                        if coverage is not None:
+                            cov_rows.append((h.pos, h.ref_len, h.weight))
+                        if tallies is not None:
+                            pure = h.cigar == f"{L}M"
+                            tally_rows.append((b, h.strand == "-", h.pos,
+                                               h.weight,
+                                               None if pure else h.cigar))
+                        if py_sam:
+                            ci, off = gen.locate(h.pos)
+                            sec = ((hi > 0) if h.primary is None
+                                   else not h.primary)
+                            flag = (16 if h.strand == "-" else 0) | (
+                                256 if sec else 0)
+                            if h.strand == "-":
+                                oseq = packing.decode(packing.revcomp(codes))
+                                oqual = qual[::-1]
+                            else:
+                                oseq, oqual = seq, qual
+                            emit(sam_io.record(
+                                batch.names[b], flag, gen.names[int(ci)],
+                                int(off), sam_io.mapq_from_weight(h.weight),
+                                h.cigar, oseq, oqual, h.score, h.weight))
             if use_native_sam:
-                emit(format_sam_batch_native(gen, batch, hits_per_read,
-                                             gp=gp, host_id=gp_host))
-            if coverage is not None:
-                _scatter_coverage(coverage, cov_rows)
-            if tallies is not None and tally_rows:
-                _scatter_tallies(tallies, batch, tally_rows)
+                with profiling.span("stream.sam_format"):
+                    text = format_sam_batch_native(gen, batch, hits_per_read,
+                                                   gp=gp, host_id=gp_host)
+                with profiling.span("stream.emit"):
+                    emit(text)
+            if coverage is not None or tallies is not None:
+                with profiling.span("stream.scatter"):
+                    if coverage is not None:
+                        _scatter_coverage(coverage, cov_rows)
+                    if tallies is not None and tally_rows:
+                        _scatter_tallies(tallies, batch, tally_rows)
             batch_idx += 1
             # callbacks run BEFORE the checkpoint: callback-written
             # artifacts must be on disk before a checkpoint state that
@@ -1368,29 +1390,33 @@ def map_stream(mapper: TorchMapper, batches: Iterable[ReadBatch],
             if checkpoint_path and batch_idx % checkpoint_every == 0:
                 # snapshot on the stream thread, serialize + write on a
                 # background thread; one write in flight at most
-                if _ck_fut[0] is not None:
-                    _ck_fut[0].result()
-                    _ck_fut[0] = None
-                off = 0
-                if sam_file is not None:
-                    sam_file.flush()
-                    off = sam_file.tell()
-                if dev_acc:
-                    cov_ck, tal_ck = mapper.fetch_accumulators()
-                else:
-                    cov_ck = None if coverage is None else coverage.copy()
-                    tal_ck = None if tallies is None else tallies.copy()
-                st_ck = ckpt_mod.StreamState(
-                    batch_idx, cov_ck, tal_ck, dataclasses.replace(stats), off)
-                _ck_fut[0] = _ck_pool().submit(
-                    ckpt_mod.save, checkpoint_path, st_ck)
+                with profiling.span("stream.checkpoint"):
+                    if _ck_fut[0] is not None:
+                        _ck_fut[0].result()
+                        _ck_fut[0] = None
+                    off = 0
+                    if sam_file is not None:
+                        sam_file.flush()
+                        off = sam_file.tell()
+                    if dev_acc:
+                        with profiling.span("stream.fetch_acc"):
+                            cov_ck, tal_ck = mapper.fetch_accumulators()
+                    else:
+                        cov_ck = None if coverage is None else coverage.copy()
+                        tal_ck = None if tallies is None else tallies.copy()
+                    st_ck = ckpt_mod.StreamState(
+                        batch_idx, cov_ck, tal_ck, dataclasses.replace(stats),
+                        off)
+                    _ck_fut[0] = _ck_pool().submit(
+                        ckpt_mod.save, checkpoint_path, st_ck)
     finally:
         # join any in-flight checkpoint write so callers see a complete
         # on-disk state
         if _ck_fut[0] is not None:
             _ck_fut[0].result()
     if dev_acc:
-        coverage, tallies = mapper.fetch_accumulators()
+        with profiling.span("stream.fetch_acc"):
+            coverage, tallies = mapper.fetch_accumulators()
         if not (cfg.sgr_out or cfg.sgrex_out or cfg.snp_mode):
             coverage = None
     return MapResult(coverage, tallies, sam_lines, stats)

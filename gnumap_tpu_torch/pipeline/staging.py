@@ -41,6 +41,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from gnumap_tpu_torch.utils import profiling
+
 
 def _uses(t: torch.Tensor) -> int:
     """References to ``t``'s storage: one for each tensor over it, and for
@@ -103,9 +105,10 @@ class Slot:
               ) -> Tuple[torch.Tensor, Optional["torch.cuda.Event"]]:
         """Start ``blob``'s copy into the buffer ``name``: (host tensor,
         the event that marks the copy's end, None on the CPU)."""
-        host = self.view(name, blob.shape, blob.dtype)
-        host.copy_(blob, non_blocking=self._ring.pinned)
-        return host, self.record()
+        with profiling.span("staging.fetch"):
+            host = self.view(name, blob.shape, blob.dtype)
+            host.copy_(blob, non_blocking=self._ring.pinned)
+            return host, self.record()
 
 
 class StagingRing:
@@ -121,20 +124,24 @@ class StagingRing:
 
     def acquire(self) -> Slot:
         """The next free slot in ring order, once its last copy is done."""
-        n = len(self.slots)
-        for _ in range(2):
-            for k in range(n):
-                i = (self._next + k) % n
-                s = self.slots[i]
-                if not s.busy():
-                    if s.event is not None:
-                        s.event.synchronize()
-                        s.event = None
-                    self._next = (i + 1) % n
-                    return s
-            # a traceback may hold the last views in a reference cycle
-            gc.collect()
-        raise RuntimeError(
-            f"staging ring: all {n} slots are held (more batches submitted "
-            "and not finished than the ring has slots, or a view of a "
-            "finished blob kept)")
+        with profiling.span("staging.acquire"):
+            n = len(self.slots)
+            for _ in range(2):
+                for k in range(n):
+                    i = (self._next + k) % n
+                    s = self.slots[i]
+                    if not s.busy():
+                        if s.event is not None:
+                            if not s.event.query():
+                                profiling.COUNTS["staging.waits"] += 1
+                                s.event.synchronize()
+                            s.event = None
+                        self._next = (i + 1) % n
+                        return s
+                # a traceback may hold the last views in a reference cycle
+                profiling.COUNTS["staging.forced_gc"] += 1
+                gc.collect()
+            raise RuntimeError(
+                f"staging ring: all {n} slots are held (more batches "
+                "submitted and not finished than the ring has slots, or a "
+                "view of a finished blob kept)")
