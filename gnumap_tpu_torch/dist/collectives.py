@@ -204,7 +204,7 @@ class DistMapper:
             part, _, n_valid = pl.decode_tb_blob(
                 cfg, Bloc, n_loc, batch.lens[lo:lo + Bloc], blob_all[r])
             n_valid_tot += n_valid
-            for b, hits in enumerate(part):
+            for b, hits in enumerate(part.to_lists()):
                 out[lo + b] = hits
         if stats is not None:
             pl._update_stats(stats, cfg, batch, out, n_valid_tot, t1 - t0,

@@ -86,7 +86,8 @@ class SegmentedMapper:
     def map_batch(self, batch: ReadBatch,
                   stats: pl.BatchStats | None = None
                   ) -> List[List[SegmentHit]]:
-        per_segment = [m.map_batch(batch, stats) for m in self.mappers]
+        per_segment = [m.map_batch(batch, stats).to_lists()
+                       for m in self.mappers]
         return merge_segment_hits(per_segment)
 
     def locate(self, hit: SegmentHit) -> Tuple[str, int]:
@@ -255,7 +256,7 @@ class GlobalSegmentedMapper:
         if futs is None:
             per = [m.map_batch(batch, seg_stats) for m in self.mappers]
         else:
-            per = [m.finish(batch, f, seg_stats)
+            per = [m.finish(batch, f, seg_stats).to_lists()
                    for m, f in zip(self.mappers, futs)]
         totals = None
         g_mapped = g_multi = None

@@ -314,7 +314,8 @@ def _sam_batch_args(codes, quals, lens, names, rnames,
     hit_score = np.ascontiguousarray(hit_score, np.int32)
     hit_xs = np.ascontiguousarray(hit_xs, np.float64)
     hit_weight = np.ascontiguousarray(hit_weight, np.float64)
-    cigar_b, cigar_off = _utf8_offsets(cigars)
+    cigar_b, cigar_off = (cigars if isinstance(cigars, tuple)
+                          else _utf8_offsets(cigars))
     unmapped = np.ascontiguousarray(unmapped, np.uint8)
     skip_arr = (np.ascontiguousarray(skip, np.uint8)
                 if skip is not None else None)
@@ -345,9 +346,11 @@ def format_sam_batch(codes, quals, lens, names, rnames,
     """One batch of SAM records as UTF-8 bytes, byte-identical to the
     io/sam.py per-record formatting encoded as UTF-8 (tests/test_native.py;
     names and contig names may be any text).  ``cigars``: list[str], "" =
-    pure match of the read's full length; ``skip``: optional bool[B] to
-    emit nothing for a read (genome-partitioned multi-host mode).  Raises
-    RuntimeError if the output would exceed the capacity bound."""
+    pure match of the read's full length, or those strings already joined
+    as (UTF-8 bytes, int64 byte offsets [Nh + 1]); ``skip``: optional
+    bool[B] to emit nothing for a read (genome-partitioned multi-host
+    mode).  Raises RuntimeError if the output would exceed the capacity
+    bound."""
     args, cap = _sam_batch_args(
         codes, quals, lens, names, rnames, hit_read, hit_flag, hit_rname,
         hit_pos, hit_mapq, cigars, hit_score, hit_xs, hit_weight, unmapped,

@@ -79,6 +79,113 @@ class ReadHit:
     primary: Optional[bool] = None  # None = local order (hit 0 primary)
 
 
+class BatchHits:
+    """One batch's hits as columns, in emission order: read ascending, then
+    (pos, '+' before '-') within a read.  Hit i belongs to read ``read[i]``;
+    read b's hits are ``offsets[b]:offsets[b + 1]``.
+
+      read int32, minus int8, pos int64, score int32, weight float64,
+      ref_len int32, primary int8 (-1 = None: local order, hit 0 primary)
+      cig_idx int64 + cigars list[str]: the CIGARs that are not
+        f"{ref_len}M" (gapped hits), by hit index ascending; every other
+        hit is a pure match of its whole read (M consumes the read, so
+        its ref_len is the read's length), the native SAM writer's and
+        tally scatter's "" CIGAR
+
+    It is also the read-only sequence of per-read ``ReadHit`` lists the
+    mappers returned before it: item access, iteration and ``to_lists()``
+    build those lists once (counted by ``hits.lists``) and keep them; a
+    caller that changes them owns what it changed, and ``of`` reads a
+    batch's columns again from them."""
+
+    __slots__ = ("n", "offsets", "read", "minus", "pos", "score", "weight",
+                 "ref_len", "primary", "cig_idx", "cigars", "_lists")
+
+    def __init__(self, n: int, read, minus, pos, score, weight, ref_len,
+                 primary=None, cig_idx=None, cigars=()):
+        self.n = n
+        self.read = np.asarray(read, np.int32)
+        self.offsets = np.zeros(n + 1, np.int64)
+        np.cumsum(np.bincount(self.read, minlength=n), out=self.offsets[1:])
+        self.minus = np.asarray(minus, np.int8)
+        self.pos = np.asarray(pos, np.int64)
+        self.score = np.asarray(score, np.int32)
+        self.weight = np.asarray(weight, np.float64)
+        self.ref_len = np.asarray(ref_len, np.int32)
+        self.primary = (np.full(len(self.read), -1, np.int8)
+                        if primary is None else np.asarray(primary, np.int8))
+        self.cig_idx = (np.zeros(0, np.int64) if cig_idx is None
+                        else np.asarray(cig_idx, np.int64))
+        self.cigars = list(cigars)
+        self._lists = None
+
+    @classmethod
+    def empty(cls, n: int) -> "BatchHits":
+        z = np.zeros(0)
+        return cls(n, z, z, z, z, z, z)
+
+    @classmethod
+    def from_lists(cls, n: int, lists) -> "BatchHits":
+        """The table of ``n`` per-read ReadHit lists (counted)."""
+        if len(lists) != n:
+            raise ValueError(f"{len(lists)} hit lists for {n} reads")
+        profiling.COUNTS["hits.lists"] += 1
+        flat = [h for hits in lists for h in hits]
+        k = len(flat)
+        gapped = [(i, h.cigar) for i, h in enumerate(flat)
+                  if h.cigar != f"{h.ref_len}M"]
+        return cls(
+            n, np.repeat(np.arange(n, dtype=np.int32),
+                         [len(hits) for hits in lists]),
+            np.fromiter((h.strand == "-" for h in flat), np.int8, k),
+            np.fromiter((h.pos for h in flat), np.int64, k),
+            np.fromiter((h.score for h in flat), np.int32, k),
+            np.fromiter((h.weight for h in flat), np.float64, k),
+            np.fromiter((h.ref_len for h in flat), np.int32, k),
+            np.fromiter((-1 if h.primary is None else bool(h.primary)
+                         for h in flat), np.int8, k),
+            [i for i, _ in gapped], [c for _, c in gapped])
+
+    @classmethod
+    def of(cls, hits) -> "BatchHits":
+        """A finish result as a table: a table whose lists were never
+        built as it is, anything else through ``from_lists``."""
+        if isinstance(hits, cls):
+            return hits if hits._lists is None else \
+                cls.from_lists(hits.n, hits._lists)
+        return cls.from_lists(len(hits), hits)
+
+    def to_lists(self) -> List[List[ReadHit]]:
+        """The per-read ReadHit lists, built at the first call (counted)."""
+        if self._lists is None:
+            profiling.COUNTS["hits.lists"] += 1
+            rl = self.ref_len.tolist()
+            cig = [f"{r}M" for r in rl]
+            for i, c in zip(self.cig_idx.tolist(), self.cigars):
+                cig[i] = c
+            hits = list(map(
+                ReadHit, ["-" if m else "+" for m in self.minus.tolist()],
+                self.pos.tolist(), self.score.tolist(),
+                self.weight.tolist(), cig, rl,
+                [None if p < 0 else bool(p) for p in self.primary.tolist()]))
+            off = self.offsets.tolist()
+            self._lists = [hits[off[b]:off[b + 1]] for b in range(self.n)]
+        return self._lists
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, b):
+        return self.to_lists()[b]
+
+    def __iter__(self):
+        return iter(self.to_lists())
+
+    def counts(self) -> np.ndarray:
+        """int64[n]: hits a read."""
+        return np.diff(self.offsets)
+
+
 @dataclasses.dataclass
 class BatchStats:
     n_reads: int = 0
@@ -682,14 +789,16 @@ def device_accumulate(cfg: MapperConfig, B: int, pwm2, rows: dict, cov,
 
 
 def decode_tb_blob(cfg: MapperConfig, B: int, n: int, lens_np, blob):
-    """Decode one device_tb_tail blob into per-read hits.
+    """Decode one device_tb_tail blob into the batch's hit table.
 
     B = device batch rows, n = real reads, lens_np = int32[B] read lengths.
-    Returns (out, n_keep, n_valid) or None on capacity overflow (the caller
-    falls back to the host-finish path).  Dedupe by (read, strand, pos)
-    keeps the max score, FIRST in hit order on ties (stable lexsort);
-    weights are normalized over the deduped set in float64; output sorted
-    by (pos, '+' before '-')."""
+    Returns (BatchHits, n_keep, n_valid) or None on capacity overflow (the
+    caller falls back to the host-finish path).  Dedupe by (read, strand,
+    pos) keeps the max score, FIRST in hit order on ties (stable lexsort);
+    weights are normalized over the deduped set in float64; each read's
+    hits sorted by (pos, '+' before '-').  Only the indel-bearing hits'
+    CIGARs are decoded (nw_tb.decode_ops); every other hit is a pure
+    match of its read's length."""
     C = cfg.max_candidates
     H = cfg.hit_capacity * 2 * B
     K = max(64, H // 32)
@@ -711,11 +820,10 @@ def decode_tb_blob(cfg: MapperConfig, B: int, n: int, lens_np, blob):
     lens_h = lens_np[b_idx]
     islot = meta[:, 3]
     sc = meta[:, 2]
-    out: List[List[ReadHit]] = [[] for _ in range(n)]
     real = b_idx < n
     idx = np.nonzero(real)[0]
     if len(idx) == 0:
-        return out, n_keep, n_valid
+        return BatchHits.empty(n), n_keep, n_valid
     order = idx[np.lexsort((-sc[idx], pos[idx], minus[idx], b_idx[idx]))]
     bo, mo, po = b_idx[order], minus[order], pos[order]
     first = np.empty(len(order), bool)
@@ -730,16 +838,15 @@ def decode_tb_blob(cfg: MapperConfig, B: int, n: int, lens_np, blob):
     emit = winners[np.lexsort((minus[winners], pos[winners],
                                b_idx[winners]))]
     w_emit = sc[emit].astype(np.float64) / totals[b_idx[emit]]
-    for j, h in enumerate(emit):
-        b = int(b_idx[h])
-        L = int(lens_h[h])
-        if islot[h] >= 0:
-            cigar, rl = nw_tb.decode_ops(ops_c[islot[h]], L)
-        else:
-            cigar, rl = f"{L}M", L
-        out[b].append(ReadHit("-" if minus[h] else "+", int(pos[h]),
-                              int(sc[h]), float(w_emit[j]), cigar, rl))
-    return out, n_keep, n_valid
+    ref_len = lens_h[emit].astype(np.int32)
+    gapped = np.nonzero(islot[emit] >= 0)[0]
+    cigars = []
+    for j in gapped.tolist():
+        cigar, ref_len[j] = nw_tb.decode_ops(ops_c[islot[emit[j]]],
+                                             int(ref_len[j]))
+        cigars.append(cigar)
+    return BatchHits(n, b_idx[emit], minus[emit], pos[emit], sc[emit],
+                     w_emit, ref_len, None, gapped, cigars), n_keep, n_valid
 
 
 def seed_csr(cfg: MapperConfig, st, codes2, lookup):
@@ -1018,7 +1125,7 @@ class TorchMapper:
 
     def finish_acc(self, batch: ReadBatch, dev_out,
                    stats: Optional[BatchStats] = None
-                   ) -> List[List[ReadHit]]:
+                   ) -> BatchHits:
         """[FROZEN v5.1] Apply this batch's accumulation (deferred from
         submit), then decode the blob (SAM on: records only) or read the
         stats vector (SAM off: the host does nothing else per batch).  A
@@ -1050,11 +1157,10 @@ class TorchMapper:
             if cfg.sam_out:
                 out, n_keep, n_valid = decode_tb_blob(
                     cfg, B, batch.n, batch.lens, arr)   # caps checked
-                n_mapped = sum(1 for hh in out if hh)
-                n_multi = sum(1 for hh in out if len(hh) > 1)
+                n_mapped, n_multi = _mapped_multi(out)
             else:
                 n_mapped, n_multi, n_valid, n_keep = (int(x) for x in arr)
-                out = [[] for _ in range(batch.n)]
+                out = BatchHits.empty(batch.n)
         if stats is not None:
             _add_stats(stats, cfg, batch.n, n_mapped, n_multi, n_valid,
                        w0.seconds + w1.seconds, d.seconds)
@@ -1063,7 +1169,7 @@ class TorchMapper:
     def _finish_acc_overflow(self, batch: ReadBatch, n_keep: int,
                              n_indel: int, n_valid: int,
                              stats: Optional[BatchStats], wait_s: float
-                             ) -> List[List[ReadHit]]:
+                             ) -> BatchHits:
         """Capacity-overflow fallback: the batch's deltas were not applied,
         so it is re-mapped on the exact host-finish path and its float64
         contributions fold into the device accumulators (fetch -> ordered
@@ -1081,18 +1187,12 @@ class TorchMapper:
         out = self.finish_host(batch, self._remap_packed(batch), fallback)
         with profiling.span("finish.decode") as d:
             cov, tal = self.fetch_accumulators()
-            _scatter_coverage(cov, [(h.pos, h.ref_len, h.weight)
-                                    for hits in out for h in hits])
+            _scatter_coverage(cov, out)
             if cfg.snp_mode:
-                _scatter_tallies(tal, batch, [
-                    (b, h.strand == "-", h.pos, h.weight,
-                     None if h.cigar == f"{int(batch.lens[b])}M"
-                     else h.cigar)
-                    for b, hits in enumerate(out) for h in hits])
+                _scatter_tallies(tal, batch, out)
             self.load_accumulators(cov, tal)
         if stats is not None:
-            _add_stats(stats, cfg, batch.n, sum(1 for hh in out if hh),
-                       sum(1 for hh in out if len(hh) > 1), n_valid,
+            _add_stats(stats, cfg, batch.n, *_mapped_multi(out), n_valid,
                        wait_s + fallback.device_s,
                        fallback.host_s + d.seconds)
         return out
@@ -1155,7 +1255,7 @@ class TorchMapper:
             return slot.fetch("blob", self._run_program(slot, batch, *fns))
 
     def finish(self, batch: ReadBatch, dev_out,
-               stats: Optional[BatchStats] = None) -> List[List[ReadHit]]:
+               stats: Optional[BatchStats] = None) -> BatchHits:
         with profiling.span("finish"):
             if self.accumulate == "device":
                 return self.finish_acc(batch, dev_out, stats)
@@ -1165,7 +1265,7 @@ class TorchMapper:
 
     def finish_host(self, batch: ReadBatch, dev_out,
                     stats: Optional[BatchStats] = None
-                    ) -> List[List[ReadHit]]:
+                    ) -> BatchHits:
         with profiling.span("finish.wait") as w:
             blob, done = dev_out
             if done is not None:
@@ -1174,8 +1274,9 @@ class TorchMapper:
         with profiling.span("finish.decode") as d:
             outputs = self.unpack_blob(arr, self.cfg.max_candidates)
             with profiling.span("finish.host"):
-                out = host_finish(self.genome, self.S_plus_np,
-                                  self.S_minus_np, self.cfg, batch, *outputs)
+                out = BatchHits.from_lists(batch.n, host_finish(
+                    self.genome, self.S_plus_np, self.S_minus_np, self.cfg,
+                    batch, *outputs))
         if stats is not None:
             _update_stats(stats, self.cfg, batch, out, int(outputs[1].sum()),
                           w.seconds, d.seconds)
@@ -1183,9 +1284,10 @@ class TorchMapper:
 
     def finish_devtb(self, batch: ReadBatch, dev_out,
                      stats: Optional[BatchStats] = None
-                     ) -> List[List[ReadHit]]:
-        """Decode the device traceback blob: group hits per read, dedupe by
-        (strand, pos), normalize posterior weights.  No DP on the host."""
+                     ) -> BatchHits:
+        """Decode the device traceback blob into the batch's hit table
+        (decode_tb_blob: dedupe by (strand, pos), posterior weights).  No
+        DP on the host."""
         cfg = self.cfg
         with profiling.span("finish.wait") as w:
             blob, done = dev_out
@@ -1214,7 +1316,7 @@ class TorchMapper:
         return out
 
     def map_batch(self, batch: ReadBatch,
-                  stats: Optional[BatchStats] = None) -> List[List[ReadHit]]:
+                  stats: Optional[BatchStats] = None) -> BatchHits:
         return self.finish(batch, self.submit(batch), stats)
 
 
@@ -1316,14 +1418,10 @@ def map_stream(mapper: TorchMapper, batches: Iterable[ReadBatch],
     batch_idx = start_batch
     _ck_fut: list = [None]
     try:
-        for batch, hits_per_read in results():
+        for batch, result in results():
             with profiling.span("stream.walk"):
-                if cfg.sam_out and not use_native_sam:
-                    qbytes = (batch.quals[:batch.n] + 33).astype(np.uint8)
-                cov_rows: List[Tuple[int, int, float]] = []
-                tally_rows: List[Tuple[int, bool, int, float,
-                                       Optional[str]]] = []
-                py_sam = cfg.sam_out and not use_native_sam
+                # one table a batch, whatever the mapper returned
+                hits = BatchHits.of(result)
                 # genome-partitioned multi-host SAM: the mapper decides, per
                 # read, whether THIS host owns its records
                 # (segments.GlobalSegmentedMapper sets gp_sam each batch)
@@ -1331,56 +1429,21 @@ def map_stream(mapper: TorchMapper, batches: Iterable[ReadBatch],
                       if cfg.sam_out and getattr(mapper, "num_hosts", 1) > 1
                       else None)
                 gp_host = getattr(mapper, "host_id", 0)
-                for b, hits in enumerate(hits_per_read):
-                    L = int(batch.lens[b])
-                    codes = batch.codes[b, :L]
-                    if py_sam:
-                        seq = packing.decode(codes)
-                        qual = qbytes[b, :L].tobytes().decode("ascii")
-                    else:
-                        seq = qual = ""
-                    if not hits:
-                        if py_sam and not (gp is not None
-                                           and (bool(gp["mapped"][b])
-                                                or gp_host != 0)):
-                            emit(sam_io.unmapped_record(batch.names[b],
-                                                        seq, qual))
-                        continue
-                    for hi, h in enumerate(hits):
-                        if coverage is not None:
-                            cov_rows.append((h.pos, h.ref_len, h.weight))
-                        if tallies is not None:
-                            pure = h.cigar == f"{L}M"
-                            tally_rows.append((b, h.strand == "-", h.pos,
-                                               h.weight,
-                                               None if pure else h.cigar))
-                        if py_sam:
-                            ci, off = gen.locate(h.pos)
-                            sec = ((hi > 0) if h.primary is None
-                                   else not h.primary)
-                            flag = (16 if h.strand == "-" else 0) | (
-                                256 if sec else 0)
-                            if h.strand == "-":
-                                oseq = packing.decode(packing.revcomp(codes))
-                                oqual = qual[::-1]
-                            else:
-                                oseq, oqual = seq, qual
-                            emit(sam_io.record(
-                                batch.names[b], flag, gen.names[int(ci)],
-                                int(off), sam_io.mapq_from_weight(h.weight),
-                                h.cigar, oseq, oqual, h.score, h.weight))
+                if cfg.sam_out and not use_native_sam:
+                    _emit_sam_py(emit, gen, batch, hits.to_lists(), gp,
+                                 gp_host)
             if use_native_sam:
                 with profiling.span("stream.sam_format"):
-                    text = format_sam_batch_native(gen, batch, hits_per_read,
+                    text = format_sam_batch_native(gen, batch, hits,
                                                    gp=gp, host_id=gp_host)
                 with profiling.span("stream.emit"):
                     emit(text)
             if coverage is not None or tallies is not None:
                 with profiling.span("stream.scatter"):
                     if coverage is not None:
-                        _scatter_coverage(coverage, cov_rows)
-                    if tallies is not None and tally_rows:
-                        _scatter_tallies(tallies, batch, tally_rows)
+                        _scatter_coverage(coverage, hits)
+                    if tallies is not None:
+                        _scatter_tallies(tallies, batch, hits)
             batch_idx += 1
             # callbacks run BEFORE the checkpoint: callback-written
             # artifacts must be on disk before a checkpoint state that
@@ -1422,46 +1485,69 @@ def map_stream(mapper: TorchMapper, batches: Iterable[ReadBatch],
     return MapResult(coverage, tallies, sam_lines, stats)
 
 
+def _emit_sam_py(emit, gen: Genome, batch: ReadBatch, hits_per_read, gp,
+                 gp_host: int) -> None:
+    """One batch's SAM records through io/sam.py, a record at a time (no
+    native library); ``gp`` as in format_sam_batch_native."""
+    qbytes = (batch.quals[:batch.n] + 33).astype(np.uint8)
+    for b, hits in enumerate(hits_per_read):
+        L = int(batch.lens[b])
+        codes = batch.codes[b, :L]
+        seq = packing.decode(codes)
+        qual = qbytes[b, :L].tobytes().decode("ascii")
+        if not hits:
+            if not (gp is not None
+                    and (bool(gp["mapped"][b]) or gp_host != 0)):
+                emit(sam_io.unmapped_record(batch.names[b], seq, qual))
+            continue
+        for hi, h in enumerate(hits):
+            ci, off = gen.locate(h.pos)
+            sec = (hi > 0) if h.primary is None else not h.primary
+            flag = (16 if h.strand == "-" else 0) | (256 if sec else 0)
+            if h.strand == "-":
+                oseq = packing.decode(packing.revcomp(codes))
+                oqual = qual[::-1]
+            else:
+                oseq, oqual = seq, qual
+            emit(sam_io.record(
+                batch.names[b], flag, gen.names[int(ci)], int(off),
+                sam_io.mapq_from_weight(h.weight), h.cigar, oseq, oqual,
+                h.score, h.weight))
+
+
 def format_sam_batch_native(gen: Genome, batch: ReadBatch, hits_per_read,
                             gp=None, host_id: int = 0) -> str:
     """One batch of SAM records via the native formatter — byte-identical
-    to the per-record io/sam.py path.  ``gp``: genome-partitioned
-    multi-host metadata (segments.gp_sam) — a read with no LOCAL hits
-    emits nothing when another host owns its records (globally mapped, or
-    unmapped with host_id != 0)."""
+    to the per-record io/sam.py path.  ``hits_per_read``: the batch's
+    BatchHits, or per-read ReadHit lists (through BatchHits.from_lists).
+    ``gp``: genome-partitioned multi-host metadata (segments.gp_sam) — a
+    read with no LOCAL hits emits nothing when another host owns its
+    records (globally mapped, or unmapped with host_id != 0)."""
     from gnumap_tpu_torch.config import SCORE_ONE
     from gnumap_tpu_torch.native import lib as native_lib
+    hits = BatchHits.of(hits_per_read)
     n = batch.n
     lens = batch.lens
-    b_idx: List[int] = []
-    flags: List[int] = []
-    pos_l: List[int] = []
-    cigs: List[str] = []
-    scores: List[int] = []
-    weights: List[float] = []
-    unmapped = np.zeros(n, np.uint8)
-    skip = np.zeros(n, np.uint8) if gp is not None else None
-    for b, hits in enumerate(hits_per_read):
-        if not hits:
-            if gp is not None and (bool(gp["mapped"][b]) or host_id != 0):
-                skip[b] = 1
-            else:
-                unmapped[b] = 1
-            continue
-        pure = f"{int(lens[b])}M"
-        for hi, h in enumerate(hits):
-            sec = (hi > 0) if h.primary is None else not h.primary
-            b_idx.append(b)
-            flags.append((16 if h.strand == "-" else 0)
-                         | (256 if sec else 0))
-            pos_l.append(h.pos)
-            cigs.append("" if h.cigar == pure else h.cigar)
-            scores.append(h.score)
-            weights.append(h.weight)
-    pos_g = np.asarray(pos_l, np.int64)
-    w = np.asarray(weights, np.float64)
-    if len(b_idx):
-        ci, off = gen.locate(pos_g)
+    none = hits.counts() == 0
+    if gp is not None:
+        skip = none & (np.asarray(gp["mapped"][:n], bool) | (host_id != 0))
+        unmapped = (none & ~skip).astype(np.uint8)
+        skip = skip.astype(np.uint8)
+    else:
+        unmapped, skip = none.astype(np.uint8), None
+    # secondary: a hit after its read's first, or primary False
+    rank = np.arange(len(hits.read)) - hits.offsets[hits.read]
+    sec = np.where(hits.primary < 0, rank > 0, hits.primary == 0)
+    flags = hits.minus.astype(np.int32) * 16 | sec.astype(np.int32) * 256
+    # CIGARs: "" (a pure match of the read's length) but where given
+    cig_b = [c.encode() for c in hits.cigars]
+    cig_len = np.zeros(len(hits.read), np.int64)
+    cig_len[hits.cig_idx] = [len(c) for c in cig_b]
+    cig_off = np.zeros(len(hits.read) + 1, np.int64)
+    np.cumsum(cig_len, out=cig_off[1:])
+    w = hits.weight
+    if len(w):
+        ci, off = gen.locate(hits.pos)
         ci, off = np.atleast_1d(ci), np.atleast_1d(off)
         # frozen mapq formula (io/sam.py mapq_from_weight): np.round is
         # round-half-even, same as Python round()
@@ -1472,27 +1558,25 @@ def format_sam_batch_native(gen: Genome, batch: ReadBatch, hits_per_read,
                     np.maximum(1e-12, 1.0 - w))), 0, 60)).astype(np.int32)
     else:
         ci = off = mq = np.zeros(0, np.int32)
-    sc = np.asarray(scores, np.int32)
+    sc = hits.score
     buf = native_lib.format_sam_batch(
         batch.codes[:n], batch.quals[:n], lens[:n], batch.names[:n],
-        gen.names, np.asarray(b_idx, np.int32),
-        np.asarray(flags, np.int32), ci.astype(np.int32),
-        off.astype(np.int64), mq, cigs, sc,
+        gen.names, hits.read, flags, ci.astype(np.int32),
+        off.astype(np.int64), mq, (b"".join(cig_b), cig_off), sc,
         sc.astype(np.float64) / SCORE_ONE, w, unmapped, skip=skip)
     return buf.decode("utf-8")
 
 
-def _scatter_coverage(coverage: np.ndarray,
-                      rows: List[Tuple[int, int, float]]) -> None:
+def _scatter_coverage(coverage: np.ndarray, hits: BatchHits) -> None:
     """One ordered scatter over all of a batch's hits, bit-identical to the
     per-hit ``coverage[pos:pos+ref_len] += w`` loop.  Native C++ when
     available; NumPy ordered np.add.at otherwise."""
-    if not rows:
+    if not len(hits.pos):
         return
     G = coverage.shape[0]
-    pos = np.fromiter((r[0] for r in rows), np.int64, len(rows))
-    rl = np.fromiter((r[1] for r in rows), np.int64, len(rows))
-    w = np.fromiter((r[2] for r in rows), np.float64, len(rows))
+    pos = hits.pos
+    rl = hits.ref_len.astype(np.int64)
+    w = hits.weight
     from gnumap_tpu_torch.native import lib as native_lib
     if native_lib.available():
         native_lib.scatter_coverage(coverage, pos, rl, w)
@@ -1505,13 +1589,13 @@ def _scatter_coverage(coverage: np.ndarray,
 
 
 def _scatter_tallies(tallies: np.ndarray, batch: ReadBatch,
-                     rows: List[Tuple[int, bool, int, float, Optional[str]]]
-                     ) -> None:
-    """Batched SNP tally scatter-add (per-base fractional A/C/G/T counts).
-    rows = (read, minus, pos, weight, cigar-or-None) in hit order; None
-    marks a pure-match hit.  One ordered scatter, bit-identical to the
-    per-hit loop."""
+                     hits: BatchHits) -> None:
+    """Batched SNP tally scatter-add (per-base fractional A/C/G/T counts)
+    of a batch's hits in their order.  One ordered scatter, bit-identical
+    to the per-hit loop."""
     from gnumap_tpu_torch.config import PWM_SCALE
+    if not len(hits.pos):
+        return
     G = tallies.shape[0]
     pw = batch.pwm_q
     Lmax = pw.shape[1]
@@ -1519,19 +1603,18 @@ def _scatter_tallies(tallies: np.ndarray, batch: ReadBatch,
     lens = batch.lens.astype(np.int64)
     from gnumap_tpu_torch.native import lib as native_lib
     if native_lib.available():
+        cigars = [""] * len(hits.pos)
+        for i, c in zip(hits.cig_idx.tolist(), hits.cigars):
+            cigars[i] = c
         native_lib.scatter_tallies(
-            tallies, pw, batch.lens,
-            np.fromiter((r[0] for r in rows), np.int32, len(rows)),
-            np.fromiter((r[1] for r in rows), np.int8, len(rows)),
-            np.fromiter((r[2] for r in rows), np.int64, len(rows)),
-            np.fromiter((r[3] for r in rows), np.float64, len(rows)),
-            [r[4] or "" for r in rows], PWM_SCALE)
+            tallies, pw, batch.lens, hits.read, hits.minus, hits.pos,
+            hits.weight, cigars, PWM_SCALE)
         return
-    if all(r[4] is None for r in rows):
-        b_idx = np.fromiter((r[0] for r in rows), np.int64, len(rows))
-        minus = np.fromiter((r[1] for r in rows), bool, len(rows))
-        pos = np.fromiter((r[2] for r in rows), np.int64, len(rows))
-        w = np.fromiter((r[3] for r in rows), np.float64, len(rows))
+    if not hits.cigars:
+        b_idx = hits.read.astype(np.int64)
+        minus = hits.minus.astype(bool)
+        pos = hits.pos
+        w = hits.weight
         ln = lens[b_idx]
         sel = pw[b_idx]                                      # (H, Lmax, 4)
         # minus hits use the reverse-complemented PWM of rows [0, len)
@@ -1554,12 +1637,14 @@ def _scatter_tallies(tallies: np.ndarray, batch: ReadBatch,
     # ordered scatter
     idx_chunks: List[np.ndarray] = []
     val_chunks: List[np.ndarray] = []
-    for b, minus, pos, w, cigar in rows:
+    cigar_of = dict(zip(hits.cig_idx.tolist(), hits.cigars))
+    for h, (b, minus, pos, w) in enumerate(zip(
+            hits.read.tolist(), hits.minus.tolist(), hits.pos.tolist(),
+            hits.weight.tolist())):
         L = int(lens[b])
         p_np = pw[b, :L]
         p_s = (pwm_mod.pwm_revcomp(p_np) if minus else p_np)
-        if cigar is None:
-            cigar = f"{L}M"
+        cigar = cigar_of.get(h, f"{L}M")
         gp, i = pos, 0
         for num, op in oracle._iter_cigar(cigar):
             if op == "M":
@@ -1726,10 +1811,18 @@ def host_finish(genome: Genome, S_plus_np, S_minus_np, cfg: MapperConfig,
     return out
 
 
+def _mapped_multi(out) -> Tuple[int, int]:
+    """(reads with a hit, reads with more than one) of a finish result."""
+    if isinstance(out, BatchHits):
+        k = out.counts()
+        return int((k > 0).sum()), int((k > 1).sum())
+    return sum(1 for h in out if h), sum(1 for h in out if len(h) > 1)
+
+
 def _update_stats(stats: BatchStats, cfg: MapperConfig, batch: ReadBatch,
                   out, n_valid: int, device_s: float, host_s: float) -> None:
-    _add_stats(stats, cfg, batch.n, sum(1 for h in out if h),
-               sum(1 for h in out if len(h) > 1), n_valid, device_s, host_s)
+    _add_stats(stats, cfg, batch.n, *_mapped_multi(out), n_valid, device_s,
+               host_s)
 
 
 def _add_stats(stats: BatchStats, cfg: MapperConfig, n_reads: int,

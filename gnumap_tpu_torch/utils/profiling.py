@@ -77,7 +77,9 @@ SPANS: Dict[str, str] = {
     "finish.host": "host_finish: retention and traceback on the host",
     "finish.accumulate": "finish_acc: device_accumulate's eager enqueue "
                          "(_apply_acc)",
-    "stream.walk": "map_stream's per-read and per-hit loop",
+    "stream.walk": "map_stream's per-batch preparation: the finish "
+                   "result as a hit table (BatchHits.of), and the SAM "
+                   "records of the Python path (no native library)",
     "stream.scatter": "map_stream's coverage and tally scatters",
     "stream.sam_format": "format_sam_batch_native",
     "stream.emit": "map_stream's write of a batch's SAM text",
@@ -96,6 +98,9 @@ COUNTERS: Dict[str, str] = {
     "staging.waits": "acquires that waited on a slot's unfinished event",
     "io.chunks": "native_lib.parse_fastq_chunk calls",
     "finish.overflow": "capacity overflows that fell back to host_finish",
+    "hits.lists": "conversions of a batch's hits between the hit table "
+                  "and per-read ReadHit lists (BatchHits.from_lists, "
+                  "the lists' first build)",
 }
 COUNTS: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
 
