@@ -683,7 +683,8 @@ def device_accumulate(cfg: MapperConfig, B: int, pwm2, rows: dict, cov,
         tallies in one launch.
     The segmented scans are _segmented, the reference's combination tree.
     Winner counts are exact integer index_adds.  Nothing here waits for the
-    host: the number of unique blocks stays a device tensor.
+    host: the number of unique blocks, B5's live work, stays a device
+    tensor, returned for the caller to bring home with the stats.
 
     n_live: a count of slots, known to the host, whose first slots hold
     every valid hit (the finish fetches n_keep, and the winners' compaction
@@ -692,7 +693,8 @@ def device_accumulate(cfg: MapperConfig, B: int, pwm2, rows: dict, cov,
     a position of a segmented scan depends only on the positions before
     it, so the rest change no bit.
 
-    Returns stats int32[4] = [n_mapped, n_multi, n_valid, n_keep]."""
+    Returns (stats int32[4] = [n_mapped, n_multi, n_valid, n_keep],
+    n_uniq int32[]: the unique 128-blocks handed to the ordered RMW)."""
     from gnumap_tpu_torch.config import PWM_SCALE
     from gnumap_tpu_torch.posterior import accum
     H = min(rows["valid_h"].shape[0], max(1, n_live))
@@ -785,7 +787,7 @@ def device_accumulate(cfg: MapperConfig, B: int, pwm2, rows: dict, cov,
         # coverage and tallies in one launch, coverage first
         accum.apply_deltas_pair(cov, tal, base_u, deltas[:, :cw][srcu],
                                 deltas[:, cw:][srcu], n_uniq)
-    return stats
+    return stats, n_uniq
 
 
 def decode_tb_blob(cfg: MapperConfig, B: int, n: int, lens_np, blob):
@@ -1099,10 +1101,11 @@ class TorchMapper:
     def _device_map_acc_q(self, packed, lens):
         return self._device_map_acc(*self._unpack_pwm(packed, lens), lens)
 
-    def _apply_acc(self, rows, pwm2, n_keep: int) -> torch.Tensor:
+    def _apply_acc(self, rows, pwm2, n_keep: int):
         """The accumulate program: [FROZEN v5] dedupe, weights and the
         ordered RMW into the device accumulators (in place), on the first
-        n_keep hit slots, which hold every hit."""
+        n_keep hit slots, which hold every hit.  Returns device_accumulate's
+        (stats, n_uniq)."""
         return device_accumulate(self.cfg, pwm2.shape[0] // 2, pwm2, rows,
                                  self._cov_dev, self._tal_dev, n_live=n_keep)
 
@@ -1128,9 +1131,11 @@ class TorchMapper:
                    ) -> BatchHits:
         """[FROZEN v5.1] Apply this batch's accumulation (deferred from
         submit), then decode the blob (SAM on: records only) or read the
-        stats vector (SAM off: the host does nothing else per batch).  A
-        capacity overflow (n_keep > H or n_indel > K) is detected before
-        any delta is applied and goes through _finish_acc_overflow."""
+        stats vector (SAM off: the host does nothing else per batch; the
+        same copy brings home B5's unique blocks, counted and recorded in
+        utils/profiling.py).  A capacity overflow (n_keep > H or n_indel >
+        K) is detected before any delta is applied and goes through
+        _finish_acc_overflow."""
         cfg = self.cfg
         B = batch.codes.shape[0]
         H = cfg.hit_capacity * 2 * B
@@ -1144,7 +1149,7 @@ class TorchMapper:
             return self._finish_acc_overflow(batch, n_keep, n_indel,
                                              n_valid, stats, w0.seconds)
         with profiling.span("finish.accumulate"):
-            stvec = self._apply_acc(rows, pwm2, n_keep)
+            stvec, n_uniq = self._apply_acc(rows, pwm2, n_keep)
         with profiling.span("finish.wait") as w1:
             if cfg.sam_out:
                 blob, done = blob_out
@@ -1152,15 +1157,20 @@ class TorchMapper:
                     done.synchronize()
                 arr = blob.numpy()
             else:
-                arr = stvec.cpu().numpy()  # waits for the accumulate program
+                # waits for the accumulate program
+                arr = torch.cat([stvec, n_uniq.reshape(1)]).cpu().numpy()
         with profiling.span("finish.decode") as d:
             if cfg.sam_out:
                 out, n_keep, n_valid = decode_tb_blob(
                     cfg, B, batch.n, batch.lens, arr)   # caps checked
                 n_mapped, n_multi = _mapped_multi(out)
             else:
-                n_mapped, n_multi, n_valid, n_keep = (int(x) for x in arr)
+                n_mapped, n_multi, n_valid, n_keep, blocks = (
+                    int(x) for x in arr)
+                profiling.COUNTS["accumulate.blocks"] += blocks
+                profiling.record("accumulate.blocks", blocks)
                 out = BatchHits.empty(batch.n)
+        profiling.COUNTS["accumulate.hits"] += n_keep
         if stats is not None:
             _add_stats(stats, cfg, batch.n, n_mapped, n_multi, n_valid,
                        w0.seconds + w1.seconds, d.seconds)

@@ -20,9 +20,15 @@ torch.profiler hooks: the counterpart of gnumap_tpu/utils/profiling.py
     and must not take that span's slot.  A pause overlaps whichever span
     it interrupted.
   * ``COUNTS``: the counters of ``COUNTERS``, by name.
+  * ``record(name, value)``: one value of ``VALUES`` (a per-batch count
+    the host has learnt, such as the blocks of a batch's accumulation),
+    stamped with the same clock into ``VALS``, a ring of its own; a reader
+    of a range that an overwritten record may have been stamped in gets
+    None, as for spans.
   * Readers, on the same clock (ns): ``total_ns(name, t0, t1)``,
-    ``totals_ns(t0, t1)``, ``span_at(t)``, ``gc_ns(t0, t1, generation)``
-    and ``counters()``.
+    ``totals_ns(t0, t1)``, ``span_at(t)``, ``gc_ns(t0, t1, generation)``,
+    ``values(name, t0, t1)``, ``value_sum(name, t0, t1)`` and
+    ``counters()``.
   * ``trace(dir)``: a context manager capturing a torch.profiler trace
     (CPU activity, and the card's kernels and copies when there is a card)
     around any mapping region, exported as a Chrome trace
@@ -101,13 +107,25 @@ COUNTERS: Dict[str, str] = {
     "hits.lists": "conversions of a batch's hits between the hit table "
                   "and per-read ReadHit lists (BatchHits.from_lists, "
                   "the lists' first build)",
+    "accumulate.blocks": "unique 128-blocks handed to the ordered RMW "
+                         "(csrc/accum_rmw.cu) by device_accumulate, where "
+                         "finish_acc brings them home (SAM off)",
+    "accumulate.hits": "retained hits (n_keep) device_accumulate applied",
 }
 COUNTS: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
+
+VALUES: Dict[str, str] = {
+    "accumulate.blocks": "a batch's unique 128-blocks handed to the "
+                         "ordered RMW, recorded when finish_acc reads its "
+                         "stats home (SAM off)",
+}
+_VIDS = {n: i for i, n in enumerate(VALUES)}
 
 # a 51 s benchmark window (about 800 batches of 12 spans and 11
 # collections) fits ten times over
 RING_SPANS = 1 << 17
 RING_GC = 1 << 17
+RING_VALUES = 1 << 15
 
 
 class Ring:
@@ -155,6 +173,8 @@ class Ring:
 
 RING = Ring(RING_SPANS, 3)
 GC = Ring(RING_GC, 4)
+# (value's index, stamp, stamp, value): start and end are the one stamp
+VALS = Ring(RING_VALUES, 4)
 
 _annotating = False
 
@@ -264,6 +284,35 @@ def gc_ns(t0: int, t1: int, generation: Optional[int] = None
     if generation is not None:
         r = r[r[:, 0] == generation]
     return int((r[:, 2] - r[:, 1]).sum())
+
+
+def record(name: str, value: int) -> None:
+    """One value of ``VALUES`` into ``VALS``, stamped now."""
+    t = _now()
+    r = VALS
+    k = (r.n & r.mask) * 4
+    b = r.buf
+    b[k] = _VIDS[name]
+    b[k + 1] = t
+    b[k + 2] = t
+    b[k + 3] = value
+    r.n += 1
+
+
+def values(name: str, t0: int, t1: int) -> Optional[np.ndarray]:
+    """int64[k]: the values of ``name`` recorded in [t0, t1], in the order
+    recorded; None if the ring lost a record that may have been."""
+    r = VALS.rows(t0, t1)
+    if r is None:
+        return None
+    return r[r[:, 0] == _VIDS[name], 3]
+
+
+def value_sum(name: str, t0: int, t1: int) -> Optional[int]:
+    """Summed values of ``name`` recorded in [t0, t1]; None as
+    ``values``."""
+    v = values(name, t0, t1)
+    return None if v is None else int(v.sum())
 
 
 def counters() -> Dict[str, int]:

@@ -172,7 +172,7 @@ def _device_accumulate_vs_jax(seed, snp, n_live, n):
                                      rows.items()},
         jnp.asarray(cov), jnp.asarray(tal), snp, interpret=True)
     tcov, ttal = torch.from_numpy(cov.copy()), torch.from_numpy(tal.copy())
-    stats = tm.device_accumulate(
+    stats, _ = tm.device_accumulate(
         to_port(cfg), 4, torch.from_numpy(pwm2),
         {k: torch.as_tensor(v) for k, v in rows.items()}, tcov,
         ttal if snp else None, n_live=n_live)
