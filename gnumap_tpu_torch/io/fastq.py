@@ -297,85 +297,107 @@ def batch_reads(reads: Iterator[ReadRecord], cfg: MapperConfig
                        n_trunc, L)
 
 
+# batch_reads_native's buffer starts at 2 * CHUNK bytes and doubles only
+# when one record fills it
+CHUNK = 8 << 20
+
+
 def batch_reads_native(path: str, cfg: MapperConfig, start: int = 0,
                        stop: "int | None" = None):
     """Native (C++) FASTQ fast path: chunked parse straight into fixed-shape
     batches; falls back to the Python parser when the lib is unavailable.
     (start, stop) restrict to a record-aligned byte range, the multi-host
-    byte partition.  Reference SeqManager analog (SURVEY.md §1 L2)."""
+    byte partition.  Reference SeqManager analog (SURVEY.md §1 L2).
+
+    One buffer serves the whole stream: the file is read into it with
+    ``readinto`` and parsed in place from the offset ``lo`` of its first
+    unparsed byte to ``hi``, the end of what was read.  It is read again
+    only when a parse comes back short of ``4 * B`` records, after the
+    unparsed remainder (less than one parse's worth) moves to its front;
+    a buffer that stays full doubles.  Only the parse after the file's (or
+    the range's) last byte is final."""
     from gnumap_tpu_torch.native import lib as native_lib
     if not native_lib.available():
         yield from batch_reads(iter_fastq(path, cfg, start, stop), cfg)
         return
     B, L = cfg.batch_size, cfg.max_read_len
-    CHUNK = 8 << 20
-    pend_names: List[str] = []
-    pend = None  # (codes, quals, lens) arrays pending batch fill
-
-    def assemble(names, codes, quals, lens):
-        # PWM stays lazy (quality-derived): built on device from the table
-        return names, codes, None, quals, lens
-
-    tail = b""
-    eof = False
+    per_parse = 4 * B
+    buf = bytearray(2 * CHUNK)
+    view = memoryview(buf)
+    lo = hi = 0
+    eof, short = False, True
     n_trunc = 0
+    k = 0              # reads in the batch being filled (b_names, ...)
     with open(path, "rb") as f:
         if start:
             f.seek(start)
-        remaining = None if stop is None else stop - start
+        left = None if stop is None else stop - start
         while True:
-            want = CHUNK if remaining is None else min(CHUNK, remaining)
-            with profiling.span("io.read"):
-                data = f.read(want) if want else b""
-                chunk = tail + data
-            if remaining is not None:
-                remaining -= len(data)
-            eof = not data
-            if not chunk:
+            if short and not eof:
+                if 0 < lo < hi:
+                    with profiling.span("io.tail"):
+                        view[:hi - lo] = view[lo:hi]
+                    profiling.COUNTS["io.carry_bytes"] += hi - lo
+                hi -= lo
+                lo = 0
+                if hi == len(buf):          # one record fills the buffer
+                    buf = buf + bytes(len(buf))
+                    view = memoryview(buf)
+                room = len(buf) - hi
+                if left is not None:
+                    room = min(room, left)
+                got = 0
+                if room:
+                    with profiling.span("io.read"):
+                        got = f.readinto(view[hi:hi + room])
+                    profiling.COUNTS["io.reads"] += 1
+                hi += got
+                if left is not None:
+                    left -= got
+                eof = not got
+            if eof and lo == hi:
                 break
             profiling.COUNTS["io.chunks"] += 1
             with profiling.span("io.parse_chunk"):
                 names, codes, quals, lens, consumed, chunk_trunc = \
-                    native_lib.parse_fastq_chunk(chunk, 4 * B, L,
+                    native_lib.parse_fastq_chunk(buf, per_parse, L,
                                                  cfg.phred_offset,
-                                                 is_final=eof)
+                                                 is_final=eof, lo=lo, hi=hi)
             if chunk_trunc and n_trunc == 0:
                 logger.warning(
                     "%s: reads exceed max_read_len=%d; truncating "
                     "(raise -L to keep full reads)", path, L)
             n_trunc += chunk_trunc
-            if consumed == 0 and eof and not names:
+            lo += consumed
+            nr = len(names)
+            if eof and not nr:
                 break
-            with profiling.span("io.tail"):
-                tail = chunk[consumed:]
+            short = nr < per_parse or lo == hi
             i = 0
-            while i < len(names):
-                take = min(B - len(pend_names), len(names) - i)
-                part = assemble(names[i:i + take], codes[i:i + take],
-                                quals[i:i + take], lens[i:i + take])
-                if pend is None and take == B:
-                    yield ReadBatch(part[0], part[1], None, part[4],
-                                    part[3], B)
+            while i < nr:
+                take = min(B - k, nr - i)
+                j = i + take
+                if take == B:
+                    yield ReadBatch(names[i:j], codes[i:j], None, lens[i:j],
+                                    quals[i:j], B)
                 else:
-                    if pend is None:
-                        pend = [np.full((B, L), 4, np.int8),
-                                np.zeros((B, L), np.int16),
-                                np.zeros(B, np.int32)]
-                    k = len(pend_names)
-                    pend[0][k:k + take] = part[1]
-                    pend[1][k:k + take] = part[3]
-                    pend[2][k:k + take] = part[4]
-                    pend_names.extend(part[0])
-                    if len(pend_names) == B:
-                        yield ReadBatch(pend_names, pend[0], None,
-                                        pend[2], pend[1], B)
-                        pend_names, pend = [], None
-                i += take
-            if eof and not names:
-                break
-    if pend_names:
-        yield ReadBatch(pend_names, pend[0], None, pend[2], pend[1],
-                        len(pend_names))
+                    if k == 0:
+                        b_names = []
+                        b_codes = np.full((B, L), 4, np.int8)
+                        b_quals = np.zeros((B, L), np.int16)
+                        b_lens = np.zeros(B, np.int32)
+                    b_names.extend(names[i:j])
+                    b_codes[k:k + take] = codes[i:j]
+                    b_quals[k:k + take] = quals[i:j]
+                    b_lens[k:k + take] = lens[i:j]
+                    k += take
+                    if k == B:
+                        yield ReadBatch(b_names, b_codes, None, b_lens,
+                                        b_quals, B)
+                        k = 0
+                i = j
+    if k:
+        yield ReadBatch(b_names, b_codes, None, b_lens, b_quals, k)
     if n_trunc:
         logger.warning("%s: %d reads were truncated to max_read_len=%d",
                        path, n_trunc, L)

@@ -98,7 +98,7 @@ def get_lib():
             ctypes.c_int64]
         lib.parse_fastq_chunk.restype = ctypes.c_int32
         lib.parse_fastq_chunk.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
@@ -141,10 +141,20 @@ def emission_int(pwm_q: np.ndarray, S_q: np.ndarray) -> np.ndarray:
     return out
 
 
-def parse_fastq_chunk(chunk: bytes, max_reads: int, max_len: int,
-                      phred_offset: int, is_final: bool = True):
-    """-> (names, codes, quals, lens, consumed_bytes, n_truncated)"""
+def parse_fastq_chunk(chunk, max_reads: int, max_len: int,
+                      phred_offset: int, is_final: bool = True,
+                      lo: int = 0, hi: "int | None" = None):
+    """-> (names, codes, quals, lens, consumed_bytes, n_truncated)
+
+    ``chunk`` is bytes or any other buffer (the reader's ``bytearray``);
+    only its bytes [lo, hi) are parsed, in place, and ``consumed_bytes``
+    counts from ``lo``."""
     lib = get_lib()
+    data = np.frombuffer(chunk, np.uint8)
+    hi = len(data) if hi is None else hi
+    if not 0 <= lo <= hi <= len(data):
+        raise ValueError(f"byte range [{lo}, {hi}) outside a buffer of "
+                         f"{len(data)} bytes")
     codes = np.empty((max_reads, max_len), dtype=np.int8)
     quals = np.empty((max_reads, max_len), dtype=np.int16)
     lens = np.empty(max_reads, dtype=np.int32)
@@ -154,7 +164,7 @@ def parse_fastq_chunk(chunk: bytes, max_reads: int, max_len: int,
     consumed = ctypes.c_int64()
     n_trunc = ctypes.c_int64()
     nr = lib.parse_fastq_chunk(
-        chunk, len(chunk), max_reads, max_len, phred_offset,
+        data.ctypes.data + lo, hi - lo, max_reads, max_len, phred_offset,
         1 if is_final else 0,
         codes.ctypes.data, quals.ctypes.data, lens.ctypes.data,
         name_buf, name_cap, name_off.ctypes.data, ctypes.byref(consumed),

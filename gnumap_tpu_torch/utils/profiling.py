@@ -57,11 +57,12 @@ import torch
 _now = time.perf_counter_ns
 
 SPANS: Dict[str, str] = {
-    "io.read": "batch_reads_native: the file read of one chunk and its "
-               "concatenation to the last chunk's unparsed tail",
+    "io.read": "batch_reads_native: one readinto of the file into the "
+               "free end of the reader's buffer",
     "io.parse_chunk": "batch_reads_native: native_lib.parse_fastq_chunk, "
                       "up to four batches of reads",
-    "io.tail": "batch_reads_native: the copy of the chunk's unparsed tail",
+    "io.tail": "batch_reads_native: the move of the buffer's unparsed "
+               "remainder to its front, before a read",
     "submit": "TorchMapper.submit, the whole call",
     "staging.acquire": "StagingRing.acquire: the wait for a free slot, "
                        "forced collections included",
@@ -103,6 +104,9 @@ COUNTERS: Dict[str, str] = {
     "staging.forced_gc": "gc.collect() calls in StagingRing.acquire",
     "staging.waits": "acquires that waited on a slot's unfinished event",
     "io.chunks": "native_lib.parse_fastq_chunk calls",
+    "io.reads": "batch_reads_native's file reads (readinto calls)",
+    "io.carry_bytes": "bytes batch_reads_native moved to its buffer's "
+                      "front before a read",
     "finish.overflow": "capacity overflows that fell back to host_finish",
     "hits.lists": "conversions of a batch's hits between the hit table "
                   "and per-read ReadHit lists (BatchHits.from_lists, "
