@@ -91,7 +91,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              gap_slack=16, ...)) and map_stream: unbanded scoring (B4) and
              the traceback on every retained hit (B3, band=None); device
              and host finish byte-equal, accuracy; B1 and B2 not launched
-  map_acc    the reference's bench config 10 (build_config10): a
+  map_acc    the reference's bench config 10 (build_workload): a
              46,709,983-base genome with 40 x 20 repeat families, 16,384
              reads, SNP mode, SAM on, accumulated on the device twice (bit-
              equal) and on the host once (counts and SAM equal, coverage
@@ -104,14 +104,14 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              and without B5 (the work around the kernel) and its transient
              device memory; then the CLI with --accumulate device --snp on
              1,024 config-2 reads against --accumulate host
-  map_multi  the reference's bench config 8: build_config10's data (built
+  map_multi  the reference's bench config 8: config 10's data (built
              once for map_acc) without SNP mode, TorchMapper and map_stream,
              SAM on: its mapped and multi-mapped counts 16,383 and 4,132,
              accuracy by sam_accuracy and by bench.py's rule (bench_account:
              the truth among the hits of the largest weight), reads with
              more than one co-best record; card against CPU on 1,024 reads
              planted in repeat copies: SAM and SGR bytes
-  map_cfg3   the reference's bench configs 3 and 5 (build_config3): a
+  map_cfg3   the reference's bench configs 3 and 5 (build_workload): a
              46,709,983-base genome, 2% in copies of one 500 bp unit, 16,384
              reads, -m 13 -j 5, max_hits 8; config 3 through TorchMapper and
              map_stream, config 5 the same in SNP mode with host coverage
@@ -123,17 +123,24 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              the same programs run eagerly, on bench config 2 (three
              batches of 16,384 reads), bench config 6 (FM, three batches of
              8,192) and the accumulate path's map program on config 10
-             (build_config10's two batches), every batch twice: the
-             outputs of each replay equal the eager program's bit for bit
-             (0 mismatches, every output of the program); the launches a
-             replay adds equal an eager call's; then, eager against graph,
-             the host time of the mapper's submit (median of 20), its
-             device time (the bench's device_ms, median of 20) and its
-             kernel and copy events under torch.profiler; the bytes the
-             graphs' private pools reserved, the host seconds of the
-             warm-up and of the capture, and the first two batches of a
-             fresh mapper (submit and finish), eager against graph
-  map_bs     the reference's bench config 4 (build_config4): 16,384
+             (its two batches), every batch twice: the outputs of each
+             replay equal the eager program's bit for bit (0 mismatches,
+             every output of the program); the launches a replay adds
+             equal an eager call's; then, eager against graph, the host
+             time of the mapper's submit (median of 20), its time on the
+             card's clock (cuda_ms, median of 20: its spin of about a
+             millisecond is shorter than the submit's host work, so the
+             reading holds that work) and its kernel and copy events and
+             their device time under torch.profiler (device_profile); the
+             bytes the graphs' private pools reserved, the host seconds of
+             the warm-up and of the capture, and the first two batches of
+             a fresh mapper (submit and finish), eager against graph; then
+             bench config 2 at its own size (16,384 reads in one batch)
+             through TorchMapper and map_stream, SAM on: mapped and
+             multi-mapped equal the reference's (CONFIG2_MAPPED,
+             CONFIG2_MULTI, BENCH_r05.json), accuracy by sam_accuracy and
+             by bench.py's rule (bench_account) at least 0.999
+  map_bs     the reference's bench config 4 (build_workload): 16,384
              bisulfite-converted reads against a 46,709,983-base genome on
              the per-strand collapsed CSR pair (-m 16, base-3 seeds),
              TorchMapper and map_stream, SAM on; then the CLI's -b on 1,024
@@ -145,7 +152,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              phase's; the FM search (index/fm.fm_hits) and the CSR gather
              (csr_hits) timed on the same seeds of the first batch, and the
              whole seeding stage of each
-  map_seg    the reference's bench config 7 (build_config7): a
+  map_seg    the reference's bench config 7 (build_workload): a
              46,709,983-base genome (2% repeats) as two contigs, 8,192 reads
              from each, GlobalSegmentedMapper(n_segments=2) against
              TorchMapper on the whole genome, SAM on: equal SAM and coverage;
@@ -169,18 +176,6 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
              seconds and bytes a batch in the collectives and staged, peak
              device memory per rank.  Two ranks on one card are not a
              scaling figure.
-  bench      the port's benchmark driver, python -m gnumap_tpu_torch.bench
-             --config 2 --reference BENCH_r05.json, in a process of its
-             own: the headline config (16,384 reads, E.coli scale) with a
-             warm-up and 3 repeats, the kernel bit check on the card, the
-             per-stage device profile and the CPU baseline (a subprocess of
-             its own); fails unless it exits 0, its last line parses, the
-             bit check holds, accuracy >= 0.999, mapped and multi-mapped
-             equal config 2's in BENCH_r05.json, every profile key is
-             finite, the profile's stages (eager prefixes) sum to within
-             15% of the mapper's own submit with its program run eagerly,
-             and B1, B2 and B3 launched; its headline
-             line is printed on a line of its own
 map_bs, map_fm and map_seg print reads/s, the card's kernel and copy time of a warm
 repeat under torch.profiler (its wall, and so the idle share beside it,
 includes the profiler's own cost) and the peak device memory of their main
@@ -219,7 +214,7 @@ PHASES = ("device", "build", "kernel_b1", "kernel_b2", "kernel_b3",
           "kernel_b4", "kernel_b5", "host_mem", "map", "map_host",
           "map_indel", "parity", "golden", "map_ckpt", "map_unbanded",
           "map_acc", "map_multi", "map_cfg3", "graph", "map_bs", "map_fm",
-          "map_seg", "map_dist", "bench")
+          "map_seg", "map_dist")
 GENOME_LEN = 4_641_652
 N_READS = 16_384
 READ_LEN = 100
@@ -1675,75 +1670,144 @@ def map_unbanded(tmp, fq, fa, pl, wrappers):
     return res, launches, spies
 
 
-BIG_GENOME = 46_709_983
+# BASELINE.json:7-11 workload ladder, the reference's bench.py:35-102
+CONFIGS = {
+    1: dict(name="phiX 10k x 36bp exact-seed",
+            genome_len=5_386, n_reads=10_000, read_len=36, mer=8, jump=4,
+            max_read_len=40, repeat_frac=0.0, bisulfite=False),
+    # batch 16384 = the whole headline workload in ONE device batch
+    2: dict(name="E.coli-scale 100bp probabilistic NW",
+            genome_len=4_641_652, n_reads=16_384, read_len=100, mer=12,
+            jump=5, max_read_len=104, repeat_frac=0.0, bisulfite=False,
+            batch=16_384),
+    3: dict(name="chr21-scale multi-map posterior",
+            genome_len=46_709_983, n_reads=16_384, read_len=100, mer=13,
+            jump=5, max_read_len=104, repeat_frac=0.02, bisulfite=False),
+    4: dict(name="chr21-scale bisulfite",
+            genome_len=46_709_983, n_reads=16_384, read_len=100, mer=16,
+            jump=5, max_read_len=104, repeat_frac=0.0, bisulfite=True),
+    # config 3 through the full map_stream (coverage + per-base tallies)
+    5: dict(name="chr21-scale SNP mode (map_stream incl. tallies)",
+            genome_len=46_709_983, n_reads=16_384, read_len=100, mer=13,
+            jump=5, max_read_len=104, repeat_frac=0.02, bisulfite=False,
+            snp=True),
+    6: dict(name="E.coli-scale FM-index backend",
+            genome_len=4_641_652, n_reads=16_384, read_len=100, mer=12,
+            jump=5, max_read_len=104, repeat_frac=0.0, bisulfite=False,
+            index="fm"),
+    7: dict(name="chr21-scale segmented genome (2 segments)",
+            genome_len=46_709_983, n_reads=16_384, read_len=100, mer=13,
+            jump=5, max_read_len=104, repeat_frac=0.02, bisulfite=False,
+            segments=2),
+    # 40 repeat families x 20 copies, 25% of the reads inside a copy
+    8: dict(name="chr21-scale multi-map stress (40 families x 20 copies)",
+            genome_len=46_709_983, n_reads=16_384, read_len=100, mer=13,
+            jump=5, max_read_len=104, repeat_frac=0.0, bisulfite=False,
+            families=(40, 20, 300), repeat_read_frac=0.25,
+            max_hits=24, hit_capacity=8),
+    # config 2 through the full map_stream with SAM written to disk, plus a
+    # timed --sort-sam pass
+    9: dict(name="E.coli-scale end-to-end SAM stream (outputs on)",
+            genome_len=4_641_652, n_reads=16_384, read_len=100, mer=12,
+            jump=5, max_read_len=104, repeat_frac=0.0, bisulfite=False,
+            sam_stream=True),
+    # config 8 in SNP mode with both accumulation paths; the recorded value
+    # is the host path's
+    10: dict(name="SNP clustered-pileup accumulate A/B (host vs device)",
+             genome_len=46_709_983, n_reads=16_384, read_len=100, mer=13,
+             jump=5, max_read_len=104, repeat_frac=0.0, bisulfite=False,
+             families=(40, 20, 300), repeat_read_frac=0.25,
+             max_hits=24, hit_capacity=8, snp=True, accum_ab=True),
+}
 
 
-def lazy_records(reads):
-    """Read records with lazy PWMs (rebuilt on the device from the quals),
-    as the FASTQ path gives them."""
+def build_workload(n_reads, genome_len, batch_size, config=2):
+    """(cfg, genome, index, read records) of a ladder config, equal to the
+    reference's build_workload: the same genome, contigs, reads and
+    records.  A size of 0 takes the config's own.  The segmented config
+    returns index None (each segment's index is built by
+    GlobalSegmentedMapper)."""
     import numpy as np
+    from gnumap_tpu_torch.config import MapperConfig
     from gnumap_tpu_torch.core import packing
+    from gnumap_tpu_torch.index import builder
     from gnumap_tpu_torch.io import fastq as io_fastq
-    return [io_fastq.ReadRecord(
-        r.name, packing.encode(r.seq), None,
-        (np.frombuffer(r.qual.encode(), np.uint8).astype(np.int32)
-         - 33).astype(np.int16)) for r in reads]
-
-
-def build_config10():
-    """The reference's bench config 10, "SNP clustered-pileup accumulate
-    A/B": a 46,709,983-base genome (seed 0) with 40 repeat families x 20
-    copies of 300 bp; 16,384 reads of 100 bp at 1% substitutions, 12,288
-    anywhere (seed 7) and 4,096 planted inside repeat copies (seed 9, starts
-    every 25 bases of a copy, the whole read inside the unit, so every copy
-    is a co-best locus); -m 13 -j 5, max_hits 24, 32 candidates, L 104,
-    batches of 8,192, hit_capacity 8, SNP mode.  Returns (cfg, genome,
-    index, read records with lazy PWMs)."""
-    import numpy as np
-    from gnumap_tpu_torch.config import MapperConfig
-    from gnumap_tpu_torch.index import builder
     from gnumap_tpu_torch.utils import sim
-    n_reads, read_len, unit_len = N_READS, READ_LEN, 300
-    cfg = MapperConfig(mer_size=13, seed_jump=5, batch_size=8192,
-                       max_read_len=104, max_candidates=32,
-                       max_hits_per_seed=24, sam_out=False, sgr_out=False,
-                       snp_mode=True, hit_capacity=8)
-    genome, spots = sim.random_genome_families(
-        BIG_GENOME, seed=0, n_families=40, copies=20, unit_len=unit_len)
-    gen = builder.Genome.from_contigs([("ref_sim", genome)])
-    idx = builder.build_index(gen, cfg)
-    n_rep = n_reads // 4
-    starts = (np.concatenate(spots)[:, None]
-              + np.arange(0, unit_len - read_len, 25)[None, :]).ravel()
-    reads = (sim.simulate_reads(genome, n_reads - n_rep, read_len, seed=7,
-                                sub_rate=0.01, contig="ref_sim")
-             + sim.simulate_reads(genome, n_rep, read_len, seed=9,
-                                  sub_rate=0.01, contig="ref_sim",
-                                  positions=starts))
-    return cfg, gen, idx, lazy_records(reads)
 
-
-def build_config3(genome_len=BIG_GENOME, n_reads=N_READS, snp=False):
-    """The reference's bench config 3, "chr21-scale multi-map posterior"
-    (bench.py's build_workload): a 46,709,983-base genome (seed 0) whose 2%
-    is 1,868 copies of one 500 bp unit; 16,384 reads of 100 bp at 1%
-    substitutions (seed 7); -m 13 -j 5, max_hits 8, 32 candidates, L 104,
-    batches of 8,192, hit_capacity 1.  With snp, bench config 5 (the same
-    data in SNP mode).  Returns (cfg, genome, index, read records with lazy
-    PWMs), the cfg as bench.py makes it (SAM and SGR off)."""
-    from gnumap_tpu_torch.config import MapperConfig
-    from gnumap_tpu_torch.index import builder
-    from gnumap_tpu_torch.utils import sim
-    cfg = MapperConfig(mer_size=13, seed_jump=5, batch_size=8192,
-                       max_read_len=104, max_candidates=32,
-                       max_hits_per_seed=8, sam_out=False, sgr_out=False,
-                       snp_mode=snp, hit_capacity=1)
-    genome = sim.random_genome(genome_len, seed=0, repeat_frac=0.02)
-    gen = builder.Genome.from_contigs([("ref_sim", genome)])
-    idx = builder.build_index(gen, cfg)
-    reads = sim.simulate_reads(genome, n_reads, READ_LEN, seed=7,
-                               sub_rate=0.01, contig="ref_sim")
-    return cfg, gen, idx, lazy_records(reads)
+    c = CONFIGS[config]
+    genome_len = genome_len or c["genome_len"]
+    n_reads = n_reads or c["n_reads"]
+    batch_size = batch_size or c.get("batch", 8192)
+    cfg = MapperConfig(mer_size=c["mer"], seed_jump=c["jump"],
+                       batch_size=batch_size,
+                       max_read_len=c["max_read_len"], max_candidates=32,
+                       max_hits_per_seed=c.get("max_hits", 8),
+                       sam_out=c.get("sam_stream", False), sgr_out=False,
+                       bisulfite=c["bisulfite"],
+                       snp_mode=c.get("snp", False),
+                       hit_capacity=c.get("hit_capacity", 1))
+    spots = None
+    if c.get("families"):
+        nf, cp, ul = c["families"]
+        genome, spots = sim.random_genome_families(
+            genome_len, seed=0, n_families=nf, copies=cp, unit_len=ul)
+    else:
+        genome = sim.random_genome(genome_len, seed=0,
+                                   repeat_frac=c["repeat_frac"])
+    if c.get("segments"):
+        # two contigs, so that the segment boundary is contig-aligned; reads
+        # are simulated per contig, so that their names carry contig-local
+        # truth
+        half = genome_len // 2
+        gen = builder.Genome.from_contigs(
+            [("ref_sim", genome[:half]), ("ref_sim2", genome[half:])])
+        idx = None
+        reads = (sim.simulate_reads(genome[:half], n_reads // 2,
+                                    c["read_len"], seed=7, sub_rate=0.01,
+                                    contig="ref_sim",
+                                    bisulfite=c["bisulfite"])
+                 + sim.simulate_reads(genome[half:], n_reads - n_reads // 2,
+                                      c["read_len"], seed=8, sub_rate=0.01,
+                                      contig="ref_sim2",
+                                      bisulfite=c["bisulfite"]))
+    else:
+        gen = builder.Genome.from_contigs([("ref_sim", genome)])
+        if c.get("index") == "fm":
+            from gnumap_tpu_torch.index import fm
+            idx = fm.build_fm_index(gen, cfg)
+        elif c["bisulfite"]:
+            idx = builder.build_bs_index(gen, cfg)
+        else:
+            idx = builder.build_index(gen, cfg)
+        if spots is not None and c.get("repeat_read_frac"):
+            # repeat_read_frac of the reads lie wholly inside a family
+            # copy, so that every copy is a co-best locus
+            n_rep = int(n_reads * c["repeat_read_frac"])
+            ul = c["families"][2]
+            allspots = np.concatenate(spots)
+            starts = (allspots[:, None] + np.arange(
+                0, ul - c["read_len"], 25)[None, :]).ravel()
+            reads = (sim.simulate_reads(genome, n_reads - n_rep,
+                                        c["read_len"], seed=7,
+                                        sub_rate=0.01, contig="ref_sim")
+                     + sim.simulate_reads(genome, n_rep, c["read_len"],
+                                          seed=9, sub_rate=0.01,
+                                          contig="ref_sim",
+                                          positions=starts))
+        else:
+            reads = sim.simulate_reads(genome, n_reads, c["read_len"],
+                                       seed=7, sub_rate=0.01,
+                                       contig="ref_sim",
+                                       bisulfite=c["bisulfite"])
+    recs = []
+    for r in reads:
+        codes = packing.encode(r.seq)
+        q = np.frombuffer(r.qual.encode(), np.uint8).astype(np.int32) - 33
+        # the PWM stays lazy: rebuilt on the device from (qual, code), as
+        # on the FASTQ path
+        recs.append(io_fastq.ReadRecord(r.name, codes, None,
+                                        q.astype(np.int16)))
+    return cfg, gen, idx, recs
 
 
 def bench_account(gen, batches, hits):
@@ -1776,13 +1840,14 @@ def bench_account(gen, batches, hits):
 
 @functools.lru_cache(maxsize=1)
 def config10():
-    """build_config10() once for map_acc and map_multi (config 8 is config
-    10's data without SNP mode)."""
-    return build_config10()
+    """Bench config 10's workload once for map_acc, map_multi and graph
+    (config 8 is config 10's data without SNP mode)."""
+    return build_workload(0, 0, 0, config=10)
 
 
 # the reference's counts (BENCH_r05.json) and the one read that bench
 # configs 3 and 5 map wrongly (ROADMAP C.4: its truth is never a candidate)
+CONFIG2_MAPPED, CONFIG2_MULTI = 16_383, 0
 CONFIG3_MAPPED, CONFIG3_MULTI = 16_110, 6
 CONFIG3_WRONG = ("sim_3473_ref_sim_13817925_-",)
 CONFIG8_MAPPED, CONFIG8_MULTI = 16_383, 4_132
@@ -1849,7 +1914,7 @@ def card_equals_cpu(pl, gen, idx, cfg, recs):
 
 
 def map_cfg3(tmp, pl, wrappers):
-    """Bench configs 3 and 5 on one genome (build_config3): config 3 through
+    """Bench configs 3 and 5 on one genome (build_workload): config 3 through
     TorchMapper and map_stream with SAM on (counted), config 5 the same
     reads in SNP mode with host accumulation; each with accuracy by
     sam_accuracy and by bench.py's rule; then the card against the CPU in
@@ -1858,7 +1923,7 @@ def map_cfg3(tmp, pl, wrappers):
     import dataclasses
     from gnumap_tpu_torch.io import fastq as io_fastq
     t0 = time.perf_counter()
-    cfg, gen, idx, recs = build_config3()
+    cfg, gen, idx, recs = build_workload(0, 0, 0, config=3)
     cfg = dataclasses.replace(cfg, sam_out=True)
     batches = list(io_fastq.batch_reads(iter(recs), cfg))
     setup_s = time.perf_counter() - t0
@@ -2116,13 +2181,12 @@ def map_acc(tmp, fa, reads, pl, wrappers):
     return res, failures, launches, spies
 
 
-def graph_programs(pl):
+def graph_programs(tmp, pl):
     """The graph phase (see the module docstring).  Returns (result by
     workload, failures)."""
     import numpy as np
     import torch
     from torch.utils import _pytree as pytree
-    from gnumap_tpu_torch import bench as bench_mod
     from gnumap_tpu_torch.io import fastq as io_fastq
     from gnumap_tpu_torch.pipeline import graphs
     from gnumap_tpu_torch.pipeline.staging import StagingRing
@@ -2133,9 +2197,8 @@ def graph_programs(pl):
         if cfgnum == 10:
             cfg, gen, idx, recs = config10()
         else:
-            B = bench_mod.CONFIGS[cfgnum].get("batch", 8192)
-            cfg, gen, idx, recs = bench_mod.build_workload(
-                3 * B, 0, 0, config=cfgnum)
+            B = CONFIGS[cfgnum].get("batch", 8192)
+            cfg, gen, idx, recs = build_workload(3 * B, 0, 0, config=cfgnum)
         acc = "device" if cfgnum == 10 else "host"
         batches = list(io_fastq.batch_reads(iter(recs), cfg))
         m = pl.TorchMapper(gen, idx, cfg, device="cuda", accumulate=acc)
@@ -2171,11 +2234,17 @@ def graph_programs(pl):
         t = {}
         for mode in ("eager", "graph"):
             m._programs.graphed = mode == "graph"
+            host = []
+            for _ in range(21):         # the first call is a warm-up
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                m.submit(b)
+                host.append((time.perf_counter() - t1) * 1e3)
+            torch.cuda.synchronize()
             t[mode] = dict(
-                submit_enqueue_ms=bench_mod.host_ms(lambda: m.submit(b), 20,
-                                                    dev),
-                device_ms=bench_mod.device_ms(lambda: m.submit(b), 20, dev),
-                submit_cuda=bench_mod.cuda_events(lambda: m.submit(b)))
+                submit_enqueue_ms=float(np.median(host[1:])),
+                device_ms=cuda_ms(lambda: m.submit(b), 20),
+                submit_cuda=device_profile(lambda: m.submit(b))[1])
         m._programs.graphed = True
         # what a capture costs a short run: the first two batches of a
         # fresh mapper, eager and graph in turns (eager, graph, graph,
@@ -2207,6 +2276,23 @@ def graph_programs(pl):
             captured=len(m._programs.captured))
         del m, fn, cap, ring, got, want
         torch.cuda.empty_cache()
+        if cfgnum == 2:
+            # bench config 2 at its own size (16,384 reads in one batch):
+            # the reference's counts; SAM on for the accuracy
+            cfg, gen, idx, recs = build_workload(0, 0, 0, config=2)
+            cfg = dataclasses.replace(cfg, sam_out=True)
+            r, _, _, _ = mapped_on_card(
+                pl, gen, idx, cfg, list(io_fastq.batch_reads(iter(recs), cfg)),
+                tmp, "graph_config2")
+            res["config2_counts"] = r
+            if ((r["mapped"], r["multi_mapped"]) != (CONFIG2_MAPPED,
+                                                     CONFIG2_MULTI)
+                    or r["accuracy"] < 0.999
+                    or r["accuracy_bench_rule"] < 0.999):
+                failures.append(f"graph config 2: mapped {r['mapped']} multi "
+                                f"{r['multi_mapped']} accuracy "
+                                f"{r['accuracy']} / "
+                                f"{r['accuracy_bench_rule']}")
     return res, failures
 
 
@@ -2253,28 +2339,6 @@ def sam_lines_accuracy(tmp, name, lines):
     return sam_accuracy(path)
 
 
-def build_config4():
-    """The reference's bench config 4, "chr21-scale bisulfite": a
-    46,709,983-base genome (seed 0, no repeats), 16,384 bisulfite-converted
-    reads of 100 bp at 1% substitutions (seed 7), -m 16 -j 5, max_hits 8,
-    32 candidates, L 104, batches of 8,192; SAM on (for the accuracy).
-    Returns (cfg, genome, per-strand collapsed CSR pair, read records)."""
-    from gnumap_tpu_torch.config import MapperConfig
-    from gnumap_tpu_torch.index import builder
-    from gnumap_tpu_torch.utils import sim
-    cfg = MapperConfig(mer_size=16, seed_jump=5, batch_size=8192,
-                       max_read_len=104, max_candidates=32,
-                       max_hits_per_seed=8, sam_out=True, sgr_out=False,
-                       bisulfite=True)
-    genome = sim.random_genome(BIG_GENOME, seed=0)
-    gen = builder.Genome.from_contigs([("ref_sim", genome)])
-    idx = builder.build_bs_index(gen, cfg)
-    reads = sim.simulate_reads(genome, N_READS, READ_LEN, seed=7,
-                               sub_rate=0.01, contig="ref_sim",
-                               bisulfite=True)
-    return cfg, gen, idx, lazy_records(reads)
-
-
 def map_bs(tmp, fa, genome_str, pl, wrappers):
     """Bench config 4 through TorchMapper and map_stream on the card
     (counted), then a warm profiled repeat; then the CLI's -b on 1,024
@@ -2285,7 +2349,8 @@ def map_bs(tmp, fa, genome_str, pl, wrappers):
     from gnumap_tpu_torch.io import fastq as io_fastq
     from gnumap_tpu_torch.utils import sim
     t0 = time.perf_counter()
-    cfg, gen, idx, recs = build_config4()
+    cfg, gen, idx, recs = build_workload(0, 0, 0, config=4)
+    cfg = dataclasses.replace(cfg, sam_out=True)    # for the accuracy
     batches = list(io_fastq.batch_reads(iter(recs), cfg))
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -2426,31 +2491,6 @@ def map_fm(tmp, fa, fq, csr_out, pl, wrappers):
     return res, failures, launches, spies
 
 
-def build_config7():
-    """The reference's bench config 7, "chr21-scale segmented genome (2
-    segments)" (bench.py's build_workload): a 46,709,983-base genome (seed
-    0, 2% repeats) as two contigs split at its half, 8,192 reads of 100 bp
-    at 1% substitutions from each (seeds 7 and 8, contig-local truth), -m 13
-    -j 5, max_hits 8, 32 candidates, L 104, batches of 8,192; SAM and SGR
-    on.  Returns (cfg, genome, read records)."""
-    from gnumap_tpu_torch.config import MapperConfig
-    from gnumap_tpu_torch.index import builder
-    from gnumap_tpu_torch.utils import sim
-    cfg = MapperConfig(mer_size=13, seed_jump=5, batch_size=8192,
-                       max_read_len=104, max_candidates=32,
-                       max_hits_per_seed=8, sam_out=True, sgr_out=True)
-    genome = sim.random_genome(BIG_GENOME, seed=0, repeat_frac=0.02)
-    half = BIG_GENOME // 2
-    gen = builder.Genome.from_contigs([("ref_sim", genome[:half]),
-                                       ("ref_sim2", genome[half:])])
-    reads = (sim.simulate_reads(genome[:half], N_READS // 2, READ_LEN,
-                                seed=7, sub_rate=0.01, contig="ref_sim")
-             + sim.simulate_reads(genome[half:], N_READS - N_READS // 2,
-                                  READ_LEN, seed=8, sub_rate=0.01,
-                                  contig="ref_sim2"))
-    return cfg, gen, lazy_records(reads)
-
-
 def map_seg(tmp, fq, genome_str, pl, wrappers):
     """Bench config 7 through GlobalSegmentedMapper(n_segments=2) on the
     card (counted), a warm profiled repeat, and TorchMapper on the whole
@@ -2464,7 +2504,8 @@ def map_seg(tmp, fq, genome_str, pl, wrappers):
     from gnumap_tpu_torch.io import fastq as io_fastq
     from gnumap_tpu_torch.utils import sim
     t0 = time.perf_counter()
-    cfg, gen, recs = build_config7()
+    cfg, gen, _, recs = build_workload(0, 0, 0, config=7)
+    cfg = dataclasses.replace(cfg, sam_out=True, sgr_out=True)
     batches = list(io_fastq.batch_reads(iter(recs), cfg))
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -2784,58 +2825,6 @@ def map_dist(tmp, fa, fq, genome_str):
     res = dict(held_before_bytes=held, worlds=worlds, cli=cli,
                note="two ranks on one card share it: not a scaling figure")
     return res, failures, b1
-
-
-def bench(tmp):
-    """The bench phase: python -m gnumap_tpu_torch.bench --config 2 in a
-    process of its own (its CPU baseline's cache in ``tmp``, so that the
-    baseline is measured in this run).  Returns (the headline line or None,
-    seconds, failures)."""
-    import math
-    from gnumap_tpu_torch import bench as bench_mod
-    ref_path = os.path.join(ROOT, "BENCH_r05.json")
-    want = bench_mod.reference_ladder(ref_path)[2]
-    t0 = time.perf_counter()
-    r = subprocess.run(
-        [sys.executable, "-m", "gnumap_tpu_torch.bench", "--config", "2",
-         "--reference", ref_path], cwd=ROOT, capture_output=True, text=True,
-        timeout=600, env=dict(os.environ, TMPDIR=tmp))
-    secs = time.perf_counter() - t0
-    try:
-        head = json.loads(r.stdout.strip().splitlines()[-1])
-    except (IndexError, json.JSONDecodeError):
-        return None, secs, [f"bench: rc {r.returncode}, no headline line: "
-                            f"{r.stderr[-2000:]}"]
-    fails = []
-    if r.returncode != 0:
-        fails.append(f"bench: rc {r.returncode} failed {head.get('failed')}"
-                     f" {r.stderr[-2000:]}")
-    if head["kernel_bitcheck"] is not True:
-        fails.append(f"bench: kernel_bitcheck "
-                     f"{head.get('kernel_bitcheck_detail')}")
-    if not head["accuracy"] >= 0.999:
-        fails.append(f"bench: accuracy {head['accuracy']}")
-    if (head["mapped"], head["multi_mapped"]) != (want["mapped"],
-                                                  want["multi_mapped"]):
-        fails.append(f"bench: mapped {head['mapped']} multi "
-                     f"{head['multi_mapped']}, BENCH_r05.json config 2 "
-                     f"{want['mapped']} {want['multi_mapped']}")
-    prof = head.get("profile") or {}
-    bad = [k for k in bench_mod.PROFILE_KEYS + ("sum_of_stages_ms",
-                                                "submit_ms", "submit_eager_ms")
-           if not (isinstance(prof.get(k), (int, float))
-                   and math.isfinite(prof[k]))]
-    if bad:
-        fails.append(f"bench: profile keys missing or not finite {bad}")
-    elif abs(prof["sum_of_stages_ms"] - prof["submit_eager_ms"]) \
-            > 0.15 * prof["submit_eager_ms"]:
-        fails.append(f"bench: stages sum to {prof['sum_of_stages_ms']} ms, "
-                     f"the eager submit takes {prof['submit_eager_ms']} ms")
-    launches = head.get("launches") or {}
-    for k in ("nw_band", "nw_pure", "nw_tb"):
-        if not launches.get(k, 0) > 0:
-            fails.append(f"bench: {k} never launched")
-    return head, secs, fails
 
 
 def main(argv=None) -> int:
@@ -3252,7 +3241,7 @@ def main(argv=None) -> int:
                 path_done(phase, launches, spies)
         if "graph" in only:
             t0 = time.perf_counter()
-            res, fails = graph_programs(pl)
+            res, fails = graph_programs(tmp, pl)
             emit("graph", seconds=time.perf_counter() - t0, **res)
             failures.extend(fails)
         config10.cache_clear()
@@ -3282,12 +3271,6 @@ def main(argv=None) -> int:
             if b1 is not None:
                 emit("map_dist_nw_band", **b1)
                 record("nw_band", b1, "nw_band at C = 16 on map_dist")
-        if "bench" in only:
-            head, secs, fails = bench(tmp)
-            if head is not None:
-                print(json.dumps(head), flush=True)
-            emit("bench", seconds=secs, failures=fails)
-            failures.extend(fails)
 
     if failures:
         raise RuntimeError("; ".join(failures))

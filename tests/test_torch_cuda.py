@@ -15,8 +15,8 @@ through GlobalSegmentedMapper, on the card and on the CPU; the reads x
 index mesh (dist/collectives.DistMapper) on the card, in a world of one
 rank on NCCL and of two ranks sharing the card over gloo, against
 TorchMapper on the card; the staging ring (pipeline/staging.py) behind slow
-device work; the benchmark driver's kernel bit check and stage profile
-(gnumap_tpu_torch/bench.py); the captured device programs
+device work; the device PWMs and reverse complements against the host
+tables; the captured device programs
 (pipeline/graphs.py): each replay's outputs equal the eager program's bit
 for bit, launches counted through replays, the capacity-overflow fallback
 through its own captured program, and a stream with the staging ring full
@@ -753,29 +753,36 @@ def test_dist_mapper_on_card_equals_torch_mapper(world, backend, R, S,
             assert run["hits"] == want
 
 
-def test_bench_bitcheck_and_profile_on_card():
-    """gnumap_tpu_torch.bench on the card: kernel_bitcheck through the CUDA
-    kernels (B1 scores, B3 tracebacks, B2 pure verdicts held to the
-    oracle), and profile_stages on a bench config 2 batch at a small genome:
-    every stage finite, the stages (eager prefixes of the program)
-    telescoping to sum_of_stages_ms within 15% of the mapper's own submit
-    with its program run eagerly, the submit through the captured graph
-    finite, and B1, B2 and B3 launched."""
-    from gnumap_tpu_torch import bench
-    _card()
-    ok, n, detail = bench.kernel_bitcheck("cuda")
-    assert (ok, detail) == (True, "ok") and n > 300
-    w = bench.build_workload(2048, 200_000, 1024, config=2)
-    for mod in (nw_band, nw_pure, nw_tb):
-        mod.LAUNCHES = 0
-    prof = bench.profile_stages(*w, "cuda")
-    for k in bench.PROFILE_KEYS + ("sum_of_stages_ms", "submit_ms",
-                                   "submit_eager_ms"):
-        assert np.isfinite(prof[k]), k
-    assert prof["batch"] == 1024
-    assert abs(prof["sum_of_stages_ms"] - prof["submit_eager_ms"]) \
-        <= 0.15 * prof["submit_eager_ms"], prof
-    assert min(nw_band.LAUNCHES, nw_pure.LAUNCHES, nw_tb.LAUNCHES) > 0
+def test_device_pwm_and_revcomp_on_card_equal_host_tables():
+    """device_pwm and revcomp_batch on the card against the host tables
+    (pwm_rows_from_table, pwm_revcomp): 64 reads of 18-37 bases, random
+    calls with Ns and Phred qualities 0-63, code N and quality 0 past each
+    read's length."""
+    dev = _card()
+    rng = np.random.default_rng(20260819)
+    B, L = 64, 37
+    codes = rng.integers(0, 5, size=(B, L)).astype(np.int8)
+    quals = rng.integers(0, 64, size=(B, L)).astype(np.int16)
+    lens = rng.integers(L // 2, L + 1, size=B).astype(np.int32)
+    pad = np.arange(L)[None, :] >= lens[:, None]
+    codes[pad] = 4
+    quals[pad] = 0
+    want = np.where(pad[:, :, None], 0,
+                    pwm.pwm_rows_from_table(codes, quals)).astype(np.int32)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    got = tm.device_pwm(t(codes), t(quals), t(lens), t(pwm.pwm_table()))
+    assert np.array_equal(got.cpu().numpy(), want)
+    rc, rc_pw = tm.revcomp_batch(t(codes), got, t(lens))
+    rc, rc_pw = rc.cpu().numpy(), rc_pw.cpu().numpy()
+    for b in range(B):
+        n = int(lens[b])
+        c = codes[b, :n][::-1]
+        assert np.array_equal(rc[b, :n], np.where(c < 4, 3 - c, 4)), b
+        assert np.array_equal(rc_pw[b, :n], pwm.pwm_revcomp(want[b, :n])), b
+        assert not rc_pw[b, n:].any(), b
 
 
 # ---------------------------------------------------------------------------

@@ -279,6 +279,59 @@ def test_device_finish_equals_host_finish_and_jax(name, workloads):
         assert n_indel_cigars > 20
 
 
+def test_device_hit_rows_stages_equal_the_reference_probes(monkeypatch):
+    """device_hit_rows split into device_retain, device_pure (B2) and
+    device_traceback (B3): each stage's rows equal the reference's
+    device_hit_rows at the GNUMAP_TB_MODE probe that stops there ("retain",
+    "pure", "full"), hit for hit, and the blob built from the stages equals
+    the mapper's and the reference's device blob."""
+    import jax.numpy as jnp
+    cfg, gen, idx, batches = _pipeline_workload(seed=55, n_reads=60,
+                                                indel=1.0, ratio=0.6)
+    tcfg, tgen, tidx = to_port((cfg, gen, idx))
+    m = tm.TorchMapper(tgen, tidx, tcfg, device="cpu")
+    ref = jm.TpuMapper(gen, idx, cfg, align_impl="pallas",
+                       finish_impl="device")
+    g = m.state["g_codes"]
+    g_words = jnp.asarray(nw_pallas.pad_genome_words(
+        np.asarray(gen.codes), cfg.window_width()))
+    n_indel = n_pure = 0
+    for b in batches:
+        tb = to_port(b)
+        out = m._device_map(torch.from_numpy(tb.codes),
+                            torch.from_numpy(tb.pwm_arr),
+                            torch.from_numpy(tb.lens))
+        rows = tm.device_retain(tcfg, *out)
+        pj = tm.device_pure(tcfg, rows, g)
+        full = tm.device_traceback(tcfg, rows, pj, out[4], g)
+        cands, valid, scores, max_sc, emis2_t, lens2 = (
+            jnp.asarray(x.numpy()) for x in out)
+        jargs = (cfg, cands, valid, scores, max_sc,
+                 jnp.transpose(emis2_t, (0, 2, 1)), lens2, g_words, True)
+        for mode in ("retain", "pure", "full"):
+            monkeypatch.setenv("GNUMAP_TB_MODE", mode)
+            want = {k: np.asarray(v) for k, v in
+                    jm.device_hit_rows(*jargs).items()}
+            if mode == "retain":
+                for k in ("valid_h", "hit_flat", "row_h", "cand_h",
+                          "score_h", "len_h", "n_keep", "n_valid"):
+                    assert np.array_equal(rows[k].numpy(), want[k]), k
+            elif mode == "pure":
+                pure, jf = pj
+                assert np.array_equal(
+                    torch.where(pure, jf, 0).numpy(), want["jfin"])
+                n_pure += int(pure.sum())
+            else:
+                assert np.array_equal(full["ops"].numpy(), want["ops"])
+                assert np.array_equal(full["jfin"].numpy(), want["jfin"])
+        blob = tm.device_tb_tail(tcfg, *out, g, rows=full).numpy()
+        monkeypatch.setenv("GNUMAP_TB_MODE", "full")
+        assert np.array_equal(blob, m.submit(tb)[0].numpy())
+        assert np.array_equal(blob, np.asarray(ref.submit(b).result()))
+        n_indel += int(blob[-1])
+    assert n_indel > 0 and n_pure > 0
+
+
 def test_decode_ops_equals_reference():
     """(g) decode_ops == nw_pallas.decode_ops on random ops rows."""
     rng = np.random.default_rng(4)

@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: every module of its package, its CLI, its
-benchmark driver (gnumap_tpu_torch/bench.py), the chip smoke script, its scale tools (tools/torch_scale_run.py,
+"""The PyTorch port stands alone: every module of its package, its CLI, the
+chip smoke script, its scale tools (tools/torch_scale_run.py,
 tools/torch_scale3g.py) and its host-memory probe (tools/torch_host_mem.py)
 import with jax and the JAX package (gnumap_tpu) both blocked from import,
 and none of their sources names either."""
@@ -33,7 +33,7 @@ for want in ("config", "core.packing", "core.pwm", "align.scoring",
              "utils.sim", "pipeline.mapper", "cli.main", "index.fm",
              "dist.segments", "dist.mesh", "dist.collectives",
              "dist.multihost", "utils.profiling", "pipeline.staging",
-             "pipeline.graphs", "bench"):
+             "pipeline.graphs"):
     assert "gnumap_tpu_torch." + want in names, want
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "gnumap_tpu", "bench"))

@@ -1,7 +1,7 @@
 """The port's scale tools (tools/torch_scale_run.py, tools/torch_scale3g.py)
 held to the reference's (tools/scale_run.py, tools/scale3g.py); the segment
-split of a genome past int32 addressing; chip_smoke.build_config3 held to
-bench.build_workload(config=3); and the one read that bench configs 3 and 5
+split of a genome past int32 addressing; chip_smoke.build_workload held to
+bench.build_workload at config 3; and the one read that bench configs 3 and 5
 map wrongly, mapped by both packages on a genome cut down to its loci."""
 
 import contextlib
@@ -201,10 +201,12 @@ def test_segment_split_of_26_contigs_under_seg_limit():
 
 
 def test_build_config3_equals_bench_workload():
-    """chip_smoke.build_config3 builds bench.build_workload(config=3)'s
-    config, genome, index and reads (a 300 kbp genome, 300 reads)."""
+    """chip_smoke.build_workload(config=3), as map_cfg3 calls it, builds
+    bench.build_workload(config=3)'s config, genome, index and reads (a 300
+    kbp genome, 300 reads)."""
     cfg, gen, idx, recs = bench.build_workload(300, 300_000, 8192, config=3)
-    tcfg, tgen, tidx, trecs = chip_smoke.build_config3(300_000, 300)
+    tcfg, tgen, tidx, trecs = chip_smoke.build_workload(300, 300_000, 0,
+                                                        config=3)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(cfg)
     assert np.array_equal(tgen.codes, gen.codes)
     assert (tgen.names, list(tgen.starts)) == (gen.names, list(gen.starts))
