@@ -2009,7 +2009,7 @@ def map_acc(tmp, fa, reads, pl, wrappers):
     import numpy as np
     import torch
     from gnumap_tpu_torch.io import fastq as io_fastq
-    from gnumap_tpu_torch.utils import sim
+    from gnumap_tpu_torch.utils import profiling, sim
     t0 = time.perf_counter()
     cfg, gen, idx, recs = config10()
     cfg = dataclasses.replace(cfg, sam_out=True)
@@ -2027,19 +2027,26 @@ def map_acc(tmp, fa, reads, pl, wrappers):
         return res, wall
 
     # the first device_accumulate call's arguments, to time the work around
-    # B5 (sorts, weights, the dense delta windows) afterwards
-    # and, a call each, its live hits and the deltas it hands B5 (device
-    # tensors, read after the run)
+    # B5 (sorts, weights, the dense delta windows) afterwards: copies of the
+    # hit rows and PWMs, which live in staging buffers that later batches
+    # overwrite (pipeline/staging.py Slot.keep); and, for each eager call,
+    # its live hits and the deltas it hands B5 (device tensors, read after
+    # the run).  The calls are eager only at a captured graph's first batch
+    # (pipeline/graphs.py AccPrograms): a capture runs nothing and is not
+    # counted, a replay calls no Python; the value ring has every batch's
+    # tier (accumulate.tier)
     real_acc, first_acc, per_call = pl.device_accumulate, [], []
     accum_mod, pair = wrappers["accum"]
 
     def acc_spy(*a, **kw):
         if not first_acc:
-            first_acc.append((a, kw))
+            first_acc.append((a[:2] + (a[2].clone(), {
+                k: v.clone() for k, v in a[3].items()}) + a[4:], kw))
         inner = getattr(accum_mod, pair)
 
         def b5(*x, **k):
-            per_call.append((a[3]["valid_h"].sum(), x[-1].clone()))
+            if not torch.cuda.is_current_stream_capturing():
+                per_call.append((a[3]["valid_h"].sum(), x[-1].clone()))
             return inner(*x, **k)
 
         setattr(accum_mod, pair, b5)
@@ -2051,11 +2058,17 @@ def map_acc(tmp, fa, reads, pl, wrappers):
     pl.device_accumulate = acc_spy
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
+    c0, p0 = profiling.counters(), profiling._now()
     try:
         (d1, w1), launches, spies = drive(lambda: run("device"), ("accum",),
                                           wrappers)
     finally:
         pl.device_accumulate = real_acc
+    c1 = profiling.counters()
+    acc_graphs = dict(tiers=profiling.values(
+        "accumulate.tier", p0, profiling._now()).tolist(), **{
+            k: c1[f"accumulate.{k}"] - c0[f"accumulate.{k}"]
+            for k in ("captures", "replays")})
     run_peak = torch.cuda.max_memory_allocated() - held
     around = None
     if first_acc:
@@ -2097,8 +2110,9 @@ def map_acc(tmp, fa, reads, pl, wrappers):
                       top_kernels=prof["top"],
                       slots=H, cov_delta_bytes=H * span * 4,
                       tal_delta_bytes=H * span * 16,
-                      live_hits=[int(h) for h, _ in per_call],
-                      b5_deltas=[int(n) for _, n in per_call],
+                      eager_live_hits=[int(h) for h, _ in per_call],
+                      eager_b5_deltas=[int(n) for _, n in per_call],
+                      graphs=acc_graphs,
                       peak_bytes_over_inputs=call_peak)
         del bufs, first_acc[:]
         torch.cuda.empty_cache()

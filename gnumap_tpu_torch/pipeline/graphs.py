@@ -29,6 +29,10 @@ nothing back to the host (``tests/test_torch_graph.py`` holds the mapper's
 programs to that).  A capture or a replay that fails raises; nothing falls
 back to an eager run.  On the CPU every call runs the program eagerly, as
 the caller asked for the CPU.
+
+The accumulate program (TorchMapper._apply_acc) is captured apart, by
+``AccPrograms``: it updates the accumulators in place and reads its inputs
+where the caller keeps them, so it has no static inputs of its own.
 """
 
 from __future__ import annotations
@@ -77,15 +81,64 @@ class Captured:
         return self.outputs
 
 
-class Programs:
-    """A mapper's captured device programs on ``device`` (see the module
-    docstring).  ``graphed`` is False on the CPU: every call is eager."""
+class _Graphs:
+    """What Programs and AccPrograms share: the device, the captured
+    programs by key, the side stream that captures run on, the counted
+    capture and the replay.  ``graphed`` is False on the CPU: every call
+    is eager."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.graphed = self.device.type == "cuda"
         self.captured: Dict[tuple, Captured] = {}
         self._side = None
+        self._pool = None
+
+    def _replay(self, cap: Captured):
+        """cap replayed on the current stream of the mapper's device, the
+        one its uploads and fetches use."""
+        with torch.cuda.device(self.device):
+            return cap.replay()
+
+    def _side_stream(self):
+        if self._side is None:
+            self._side = torch.cuda.Stream(device=self.device)
+        return self._side
+
+    def _capture(self, fn, args):
+        """(graph, static outputs) of fn(*args) captured on the side
+        stream with torch.cuda.graph, into ``self._pool`` (None: a private
+        pool of the graph's own)."""
+        with torch.cuda.device(self.device):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._side_stream(),
+                                  capture_error_mode="thread_local"):
+                outputs = fn(*args)
+        return graph, outputs
+
+    def _captured(self, span: str, fn, args,
+                  inputs: Dict[str, torch.Tensor],
+                  warm_up_s: float) -> Captured:
+        """fn(*args) captured (_capture), timed by the span ``span``, with
+        the kernels' LAUNCHES put back as they were."""
+        before = _counts()
+        try:
+            with profiling.span(span) as capture:
+                graph, outputs = self._capture(fn, args)
+        finally:
+            after = _counts()
+            for mod, n in zip(KERNEL_MODULES, before):
+                mod.LAUNCHES = n
+        return Captured(
+            graph, inputs, outputs,
+            [(m, a - b) for m, a, b in zip(KERNEL_MODULES, after, before)
+             if a != b], warm_up_s, capture.seconds)
+
+
+class Programs(_Graphs):
+    """A mapper's captured device programs on ``device`` (see the module
+    docstring)."""
 
     @staticmethod
     def key(fn: Callable, arrays: Dict[str, np.ndarray]) -> tuple:
@@ -117,30 +170,9 @@ class Programs:
         args = tuple(inputs.values())
         with profiling.span("graphs.warm_up") as warm:
             out = self._warm_up(fn, args)
-        before = _counts()
-        try:
-            with profiling.span("graphs.capture") as capture:
-                graph, outputs = self._capture(fn, args)
-        finally:
-            after = _counts()
-            for mod, n in zip(KERNEL_MODULES, before):
-                mod.LAUNCHES = n
-        self.captured[key] = Captured(
-            graph, inputs, outputs,
-            [(m, a - b) for m, a, b in zip(KERNEL_MODULES, after, before)
-             if a != b], warm.seconds, capture.seconds)
+        self.captured[key] = self._captured("graphs.capture", fn, args,
+                                            inputs, warm.seconds)
         return out
-
-    def _replay(self, cap: Captured):
-        """cap replayed on the current stream of the mapper's device, the
-        one its uploads and fetches use."""
-        with torch.cuda.device(self.device):
-            return cap.replay()
-
-    def _side_stream(self):
-        if self._side is None:
-            self._side = torch.cuda.Stream(device=self.device)
-        return self._side
 
     def _warm_up(self, fn, args):
         """fn(*args) eagerly on the side stream, ordered after the inputs'
@@ -162,19 +194,63 @@ class Programs:
                     t.record_stream(cur)
         return out
 
-    def _capture(self, fn, args):
-        """(graph, static outputs) of fn(*args) captured on the side
-        stream."""
-        with torch.cuda.device(self.device):
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=self._side_stream(),
-                                  capture_error_mode="thread_local"):
-                outputs = fn(*args)
-        return graph, outputs
-
     def pool_bytes(self) -> int:
         """Bytes the captured programs' private pools hold (the caching
         allocator's segments of each graph's pool)."""
         pools = {tuple(c.graph.pool()) for c in self.captured.values()}
         return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
                    if tuple(s["segment_pool_id"]) in pools)
+
+
+class AccPrograms(_Graphs):
+    """A mapper's captured accumulate programs (TorchMapper._apply_acc:
+    device_accumulate and B5's launch) on ``device``.
+
+    Unlike Programs it stages nothing: the program reads the batch's hit
+    rows and PWMs from device buffers of the batch's staging slot
+    (pipeline/staging.py ``Slot.keep``) and updates the accumulators,
+    which the mapper keeps at one address, in place.  So the key is the
+    program's name, every tensor's address, shape and dtype and every other
+    argument (the tier of n_keep), with the tensors it updates (``state``):
+    one graph for each (staging slot, tier, program variant).
+
+    The first call of a key runs the program eagerly on the current stream,
+    which is the batch's own run, then captures it on the side stream,
+    where nothing runs; every later call replays the graph on the current
+    stream.  All of a mapper's accumulate graphs share one private memory
+    pool: their replays run one at a time on one stream, and each replay's
+    outputs (stats and unique blocks) are read, or dropped, before the
+    next.  Counters accumulate.captures and accumulate.replays, span
+    accumulate.capture (utils/profiling.py)."""
+
+    @staticmethod
+    def key(fn: Callable, args: tuple, state: tuple) -> tuple:
+        """(program name, (address, shape, dtype) of each tensor and each
+        other leaf of args and state as it is)."""
+        def leaf(x):
+            if isinstance(x, torch.Tensor):
+                return (x.data_ptr(), tuple(x.shape), x.dtype)
+            return x
+        return (fn.__name__,) + tuple(
+            leaf(x) for x in pytree.tree_leaves((args, state)))
+
+    def __call__(self, fn: Callable, *args, state: tuple = ()):
+        """``fn(*args)``: eager on the CPU; on a card eager at a key's
+        first call, then captured, and replayed at every later call."""
+        if not self.graphed:
+            return fn(*args)
+        key = self.key(fn, args, state)
+        cap = self.captured.get(key)
+        if cap is not None:
+            profiling.COUNTS["accumulate.replays"] += 1
+            return self._replay(cap)
+        out = fn(*args)
+        self.captured[key] = self._captured("accumulate.capture", fn, args,
+                                            {}, 0.0)
+        profiling.COUNTS["accumulate.captures"] += 1
+        return out
+
+    def _capture(self, fn, args):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return super()._capture(fn, args)

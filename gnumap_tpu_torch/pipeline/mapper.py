@@ -58,7 +58,7 @@ from gnumap_tpu_torch.io import sam as sam_io
 from gnumap_tpu_torch.io.fastq import ReadBatch
 from gnumap_tpu_torch.oracle import oracle
 from gnumap_tpu_torch.align import nw_band, nw_full, nw_pure, nw_ref, nw_tb
-from gnumap_tpu_torch.pipeline.graphs import Programs
+from gnumap_tpu_torch.pipeline.graphs import AccPrograms, Programs
 from gnumap_tpu_torch.pipeline.staging import StagingRing
 from gnumap_tpu_torch.utils import profiling
 
@@ -609,14 +609,15 @@ def acc_padded_len(cfg: MapperConfig, G: int) -> int:
     return ((G + 2 * span + 127) // 128) * 128
 
 
-def _segmented(comb, vals, seg, reverse=False):
+def _segmented(comb, vals, seg, reverse=False, inplace=False):
     """Segmented inclusive scan of vals (H, ...) under comb, restarting where
     the grouped ids seg (H,) change (gnumap_tpu/pipeline/mapper.py
     _segmented): the combination tree of jax.lax.associative_scan, so the
     f32 bits are the reference's.  That scan pairs (e[2k], e[2k+1]), scans
     the pairs recursively and combines each even e[2k] with the scanned
-    pair before it; here the same tree runs in place on a copy, level by
-    level on strided views (level l's element j is the block of 2^l ends at
+    pair before it; here the same tree runs in place on a copy (on vals
+    itself with ``inplace``, forward only), level by level on strided
+    views (level l's element j is the block of 2^l ends at
     position 2^l (j + 1) - 1, where its result also lands), with the
     reference's operator where(seg_a == seg_b, comb(a, b), b).  A combined
     element keeps the later id, so the ids never change.  (The reference
@@ -624,7 +625,7 @@ def _segmented(comb, vals, seg, reverse=False):
     +0.0; the values scanned here are never -0.0.)"""
     if reverse:
         return _segmented(comb, vals.flip(0), seg.flip(0)).flip(0)
-    out = vals.clone()
+    out = vals if inplace else vals.clone()
     n = out.shape[0]
     seg = seg.reshape((n,) + (1,) * (out.ndim - 1))
 
@@ -643,6 +644,15 @@ def _segmented(comb, vals, seg, reverse=False):
         s //= 2
         step(3 * s - 1, (n // s - 1) // 2, s)
     return out
+
+
+def acc_tier(n_keep: int, H: int) -> int:
+    """The hit slots the accumulate program runs on for a batch of n_keep
+    retained hits in H slots: n_keep rounded up to a multiple of 128 (at
+    least 128), at most H.  Any count from n_keep to H gives the same bits
+    (device_accumulate's n_live); a few tiers let a few captured graphs
+    (pipeline/graphs.py AccPrograms) serve every batch."""
+    return min(H, 128 * max(1, -(-n_keep // 128)))
 
 
 # the per-hit rows device_accumulate reads
@@ -683,15 +693,21 @@ def device_accumulate(cfg: MapperConfig, B: int, pwm2, rows: dict, cov,
         tallies in one launch.
     The segmented scans are _segmented, the reference's combination tree.
     Winner counts are exact integer index_adds.  Nothing here waits for the
-    host: the number of unique blocks, B5's live work, stays a device
-    tensor, returned for the caller to bring home with the stats.
+    host, so a CUDA graph can hold the whole program (pipeline/graphs.py
+    AccPrograms): every shape follows from n_live and the inputs' shapes,
+    the tally scatter sends the read bases that land nowhere to a discard
+    row past the last slot's window (no boolean mask, whose indices a card
+    counts on the host), and the number of unique blocks, B5's live work,
+    stays a device tensor, returned for the caller to bring home with the
+    stats.
 
     n_live: a count of slots, known to the host, whose first slots hold
     every valid hit (the finish fetches n_keep, and the winners' compaction
-    fills the first n_keep slots).  Only those slots are sorted, scanned and
-    windowed: the reference's H slots sort the invalid ones after them, and
-    a position of a segmented scan depends only on the positions before
-    it, so the rest change no bit.
+    fills the first n_keep slots; TorchMapper passes acc_tier(n_keep, H)).
+    Only those slots are sorted, scanned and windowed: the reference's H
+    slots sort the invalid ones after them, and a position of a segmented
+    scan depends only on the positions before it, so the rest change no
+    bit.
 
     Returns (stats int32[4] = [n_mapped, n_multi, n_valid, n_keep],
     n_uniq int32[]: the unique 128-blocks handed to the ordered RMW)."""
@@ -762,8 +778,11 @@ def device_accumulate(cfg: MapperConfig, B: int, pwm2, rows: dict, cov,
     # coverage and tally windows side by side in one buffer, so that one
     # scan coalesces both (the scan is elementwise along the window)
     cw = span // 128
-    deltas = torch.zeros((H, cw * (5 if tal is not None else 1), 128),
-                         dtype=torch.float32, device=dev)
+    # (SNP mode) four floats past the last window: the tally discard row
+    nd = H * cw * (5 if tal is not None else 1) * 128
+    flat = torch.zeros(nd + (4 if tal is not None else 0),
+                       dtype=torch.float32, device=dev)
+    deltas = flat[:nd].view(H, -1, 128)
     s = (pos_h - (base_units << 7))[perm]
     kk = torch.arange(span, device=dev)[None, :]
     deltas[:, :cw] = torch.where((kk >= s[:, None])
@@ -776,11 +795,18 @@ def device_accumulate(cfg: MapperConfig, B: int, pwm2, rows: dict, cov,
         ok = ((opb[perm] == 0) & in_read[perm] & (col >= 0) & (col < span))
         # row h's tallies are the (span, 4) rows from h * 5 span / 4 +
         # span / 4 of the buffer; row-major (span, 4) is the 4p + b lane
-        # interleave
-        tgt = (torch.arange(H, device=dev)[:, None] * (5 * span // 4)
-               + span // 4 + col)[ok]
-        deltas.view(-1, 4)[tgt] = val[ok]
-    deltas = _segmented(torch.add, deltas, skey)
+        # interleave.  The targets of ok bases are unique; every other base
+        # goes to the discard row H * 5 span / 4, which nothing reads
+        tgt = torch.where(ok, torch.arange(H, device=dev)[:, None]
+                          * (5 * span // 4) + span // 4 + col,
+                          H * (5 * span // 4))
+        flat.view(-1, 4)[tgt] = val
+        del val, col, ok, tgt
+    # the windows' scan and B5's gathers are the program's peak of device
+    # memory: no other per-hit window is alive there, and the scan runs in
+    # the windows' own buffer
+    del gidx, step, opb, in_read
+    _segmented(torch.add, deltas, skey, inplace=True)
     if tal is None:
         accum.apply_deltas(cov, base_u, deltas[srcu], n_uniq, rowmul=1)
     else:
@@ -965,6 +991,9 @@ class TorchMapper:
         # the device programs the JAX package jits, captured on a card at
         # their first call for a batch shape and replayed after it
         self._programs = Programs(self.device)
+        # the accumulate program, captured on a card for each staging slot
+        # and tier of n_keep (acc_tier) and replayed after it
+        self._acc_programs = AccPrograms(self.device)
         if accumulate == "device":
             self.reset_accumulators()
 
@@ -1048,7 +1077,14 @@ class TorchMapper:
     # ------------------------------------------------------------------
     def reset_accumulators(self):
         """(Re)zero the device-resident coverage / tally arrays, padded so
-        that spans clipped at the genome's ends land in the pad."""
+        that spans clipped at the genome's ends land in the pad.  Once
+        allocated they are only ever updated in place, so that their
+        addresses stay those the accumulate program's graphs hold."""
+        if getattr(self, "_cov_dev", None) is not None:
+            self._cov_dev.zero_()
+            if self._tal_dev is not None:
+                self._tal_dev.zero_()
+            return
         Gpad = acc_padded_len(self.cfg, len(self.genome.codes))
         self._cov_dev = torch.zeros((Gpad // 128, 128), dtype=torch.float32,
                                     device=self.device)
@@ -1067,17 +1103,19 @@ class TorchMapper:
         return cov, tal
 
     def load_accumulators(self, cov, tal=None):
-        """Resume from checkpointed host arrays (f64 -> f32)."""
+        """Resume from checkpointed host arrays (f64 -> f32), copied into
+        the device arrays in place (reset_accumulators)."""
         G = len(self.genome.codes)
         Gpad = acc_padded_len(self.cfg, G)
+        if getattr(self, "_cov_dev", None) is None:
+            self.reset_accumulators()
         c = np.zeros((Gpad,), np.float32)
         c[:G] = np.asarray(cov)[:G]
-        self._cov_dev = torch.from_numpy(c.reshape(-1, 128)).to(self.device)
+        self._cov_dev.copy_(torch.from_numpy(c.reshape(-1, 128)))
         if tal is not None and self.cfg.snp_mode:
             t = np.zeros((Gpad, 4), np.float32)
             t[:G] = np.asarray(tal)[:G]
-            self._tal_dev = torch.from_numpy(t.reshape(-1, 128)).to(
-                self.device)
+            self._tal_dev.copy_(torch.from_numpy(t.reshape(-1, 128)))
 
     def _device_map_acc(self, codes, pwm_q, lens):
         """The map program of the accumulate path: scoring and the device
@@ -1101,13 +1139,14 @@ class TorchMapper:
     def _device_map_acc_q(self, packed, lens):
         return self._device_map_acc(*self._unpack_pwm(packed, lens), lens)
 
-    def _apply_acc(self, rows, pwm2, n_keep: int):
+    def _apply_acc(self, rows, pwm2, n_live: int):
         """The accumulate program: [FROZEN v5] dedupe, weights and the
         ordered RMW into the device accumulators (in place), on the first
-        n_keep hit slots, which hold every hit.  Returns device_accumulate's
-        (stats, n_uniq)."""
+        n_live hit slots, which hold every hit (finish_acc passes
+        acc_tier(n_keep, H)).  Returns device_accumulate's (stats,
+        n_uniq)."""
         return device_accumulate(self.cfg, pwm2.shape[0] // 2, pwm2, rows,
-                                 self._cov_dev, self._tal_dev, n_live=n_keep)
+                                 self._cov_dev, self._tal_dev, n_live=n_live)
 
     def _submit_acc(self, batch: ReadBatch):
         """[FROZEN v5.1] submit runs ONLY the map program; the accumulate
@@ -1121,9 +1160,10 @@ class TorchMapper:
             slot, batch, self._device_map_acc_q, self._device_map_acc)
         # finish_acc reads rows and pwm2 after up to STREAM_DEPTH later
         # submits, and a replay's outputs are overwritten by the next one:
-        # the batch keeps copies of its own
-        rows = {k: rows[k].clone() for k in ACC_ROW_KEYS}
-        return (rows, pwm2.clone(), slot.fetch("nvk", nvk),
+        # the batch copies them into device buffers of its staging slot,
+        # at the addresses the slot's accumulate graphs read
+        rows = {k: slot.keep(k, rows[k]) for k in ACC_ROW_KEYS}
+        return (rows, slot.keep("pwm2", pwm2), slot.fetch("nvk", nvk),
                 slot.fetch("blob", blob) if self.cfg.sam_out else None)
 
     def finish_acc(self, batch: ReadBatch, dev_out,
@@ -1135,7 +1175,10 @@ class TorchMapper:
         same copy brings home B5's unique blocks, counted and recorded in
         utils/profiling.py).  A capacity overflow (n_keep > H or n_indel >
         K) is detected before any delta is applied and goes through
-        _finish_acc_overflow."""
+        _finish_acc_overflow.  The accumulate program runs on the batch's
+        tier of slots (acc_tier, recorded in utils/profiling.py): on a card
+        the replay of the graph captured for the batch's staging slot and
+        tier (pipeline/graphs.py AccPrograms)."""
         cfg = self.cfg
         B = batch.codes.shape[0]
         H = cfg.hit_capacity * 2 * B
@@ -1148,8 +1191,12 @@ class TorchMapper:
         if n_keep > H or n_indel > K:
             return self._finish_acc_overflow(batch, n_keep, n_indel,
                                              n_valid, stats, w0.seconds)
+        tier = acc_tier(n_keep, H)
+        profiling.record("accumulate.tier", tier)
         with profiling.span("finish.accumulate"):
-            stvec, n_uniq = self._apply_acc(rows, pwm2, n_keep)
+            stvec, n_uniq = self._acc_programs(
+                self._apply_acc, rows, pwm2, tier,
+                state=(self._cov_dev, self._tal_dev))
         with profiling.span("finish.wait") as w1:
             if cfg.sam_out:
                 blob, done = blob_out

@@ -27,10 +27,16 @@ caller that holds more slots than its ring has raises rather than waits.
 On a card whose mapper replays a captured program (pipeline/graphs.py) an
 upload lands in the program's static input, and the blob's copy is queued
 right behind the replay on the same stream, so the next replay overwrites
-the static output only after that copy.  On the CPU the buffers are plain
-tensors, the "device" tensor of an upload is the buffer itself and nothing
-is recorded, so the same reuse logic runs in the tests without a card.  A
-pinned allocation that fails raises: there is no pageable fallback.
+the static output only after that copy.  A slot also owns device buffers
+(``keep``): the accumulate path copies a batch's hit rows and PWMs there
+at submit, and reads them at the batch's finish, at the addresses the
+slot's captured accumulate programs hold.  The views it hands out keep
+the slot busy as a pinned buffer's do, so the slot's next batch, which
+writes them again, comes after that finish on the same stream.  On the
+CPU the buffers are plain tensors, the "device" tensor of an upload is the
+buffer itself and nothing is recorded, so the same reuse logic runs in the
+tests without a card.  A pinned allocation that fails raises: there is no
+pageable fallback.
 """
 
 from __future__ import annotations
@@ -57,11 +63,15 @@ class Slot:
         self._ring = ring
         self.bufs: Dict[str, torch.Tensor] = {}
         self._own: Dict[str, int] = {}   # a buffer's uses with no view alive
+        self.kept: Dict[str, torch.Tensor] = {}   # device buffers (keep)
+        self._own_kept: Dict[str, int] = {}
         self.event = None            # behind the slot's last copy (card)
 
     def busy(self) -> bool:
-        """Something other than the slot holds one of its buffers."""
-        return any(_uses(b) > self._own[k] for k, b in self.bufs.items())
+        """Something other than the slot holds one of its buffers, pinned
+        or kept (a view that ``keep`` handed out)."""
+        return any(_uses(b) > self._own[k] for k, b in self.bufs.items()) \
+            or any(_uses(b) > self._own_kept[k] for k, b in self.kept.items())
 
     def view(self, name: str, shape, dtype: torch.dtype) -> torch.Tensor:
         """A tensor of ``shape`` and ``dtype`` over the buffer ``name``,
@@ -74,6 +84,19 @@ class Slot:
             self._own[name] = _uses(buf)
             self._ring.allocs += 1
         return buf[:n].view(dtype).view(tuple(shape))
+
+    def keep(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A view of the device buffer ``name`` with ``t``'s values (a copy
+        queued on the current stream): the same memory batch after batch,
+        allocated at the first request and again only for another shape
+        or dtype.  The slot is busy while the view lives, so that the next
+        batch's copy cannot land under a program that still reads it."""
+        buf = self.kept.get(name)
+        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+            buf = self.kept[name] = torch.empty(t.shape, dtype=t.dtype,
+                                                device=t.device)
+            self._own_kept[name] = _uses(buf)
+        return buf.copy_(t).view(buf.shape)
 
     def record(self) -> Optional["torch.cuda.Event"]:
         """An event behind the copies queued so far (None on the CPU)."""

@@ -44,7 +44,10 @@ def apply_deltas_plain(arr, base_units, deltas, n_real, *, rowmul: int):
 
 # The kernel's order flag, one per (device, stream): [int32[2] zeroed once,
 # launches made with it].  A launch uses slot (launches & 1) and clears the
-# other one (csrc/accum_rmw.cu), so the wrapper never zeroes it again.
+# other one (csrc/accum_rmw.cu), so the wrapper never zeroes it again.  A
+# launch captured into a CUDA graph (pipeline/graphs.py AccPrograms) would
+# freeze its slot, so it takes a flag of its own, zeroed inside the graph
+# before the launch on every replay, and leaves the stream's untouched.
 _flags: dict = {}
 
 
@@ -75,10 +78,13 @@ def _launch(jobs, base_units, n_real):
                      deltas.shape[1], rowmul]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        state = _flags.get((dev.index, stream))
-        if state is None:
-            state = _flags[(dev.index, stream)] = [
-                torch.zeros(2, dtype=torch.int32, device=dev), 0]
+        if torch.cuda.is_current_stream_capturing():
+            state = [torch.zeros(2, dtype=torch.int32, device=dev), 0]
+        else:
+            state = _flags.get((dev.index, stream))
+            if state is None:
+                state = _flags[(dev.index, stream)] = [
+                    torch.zeros(2, dtype=torch.int32, device=dev), 0]
         rc = fn(len(jobs), *job_args, base_units.data_ptr(),
                 n_real.data_ptr(), H, state[0].data_ptr(), state[1] & 1,
                 stream)

@@ -82,8 +82,13 @@ SPANS: Dict[str, str] = {
                      "decode_tb_blob, or the host finish, or the "
                      "accumulators' fold (BatchStats.host_s)",
     "finish.host": "host_finish: retention and traceback on the host",
-    "finish.accumulate": "finish_acc: device_accumulate's eager enqueue "
-                         "(_apply_acc)",
+    "finish.accumulate": "finish_acc: the accumulate program "
+                         "(_apply_acc through AccPrograms): on a card the "
+                         "replay of its captured graph, or at a key's "
+                         "first call the eager run and the capture; on "
+                         "the CPU the eager run",
+    "accumulate.capture": "AccPrograms.__call__ on a new key: the capture "
+                          "on the side stream, after the eager run",
     "stream.walk": "map_stream's per-batch preparation: the finish "
                    "result as a hit table (BatchHits.of), and the SAM "
                    "records of the Python path (no native library)",
@@ -115,6 +120,12 @@ COUNTERS: Dict[str, str] = {
                          "(csrc/accum_rmw.cu) by device_accumulate, where "
                          "finish_acc brings them home (SAM off)",
     "accumulate.hits": "retained hits (n_keep) device_accumulate applied",
+    "accumulate.captures": "accumulate programs captured "
+                           "(pipeline/graphs.py AccPrograms): one a "
+                           "staging slot, tier of n_keep and variant",
+    "accumulate.replays": "batches whose accumulate program was a "
+                          "captured graph's replay; over the batches, the "
+                          "share the graphs serve",
 }
 COUNTS: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
 
@@ -122,6 +133,9 @@ VALUES: Dict[str, str] = {
     "accumulate.blocks": "a batch's unique 128-blocks handed to the "
                          "ordered RMW, recorded when finish_acc reads its "
                          "stats home (SAM off)",
+    "accumulate.tier": "a batch's tier of hit slots, the n_live its "
+                       "accumulate program runs on (acc_tier), recorded "
+                       "by finish_acc",
 }
 _VIDS = {n: i for i, n in enumerate(VALUES)}
 

@@ -13,7 +13,8 @@ benchmark's plain reference, on the CPU.
     ``ecoli-k12-100bp-snp`` cut to the CPU, lies within the
     configuration's ``cov_gap`` and ``tally_gap`` limits of
     ``mapbench/reference``'s float64 sums; finish_acc counts each batch's
-    blocks and records them once a batch.
+    blocks and records them, and the tier of slots its accumulate program
+    ran on, once a batch.
 """
 
 import os
@@ -86,6 +87,44 @@ def _independent_blocks(cfg, rows, n_live, Gpad):
     pos = (cand - cfg.gap_slack) // 8 * 8 + np.asarray(rows["jfin"])[:n]
     top = (Gpad - tm.acc_span(cfg)) // 128
     return len(np.unique(np.clip(pos[valid] // 128, 0, top)))
+
+
+@pytest.mark.parametrize("H", [100, 128, 512, 8192])
+@pytest.mark.parametrize("n_keep", [0, 1, 127, 128, 129, "H"])
+def test_tier_holds_every_hit_within_the_slots(n_keep, H):
+    """acc_tier: at least n_keep, at most H, a multiple of 128 below H,
+    and under 128 slots above n_keep (at least one slot)."""
+    n = H if n_keep == "H" else min(n_keep, H)
+    t = tm.acc_tier(n, H)
+    assert max(n, 1) <= t <= H
+    assert t == H or (t % 128 == 0 and t - max(n, 1) < 128)
+
+
+@pytest.mark.parametrize("snp", [True, False])
+def test_accumulators_keep_their_storage(snp):
+    """reset_accumulators and load_accumulators write into the tensors
+    they found (the addresses the accumulate program's graphs hold)."""
+    cfg = MapperConfig(mer_size=8, batch_size=16, max_read_len=40,
+                       snp_mode=snp)
+    rng = np.random.default_rng(7)
+    gen = builder.Genome.from_contigs([("a", rng.integers(0, 4, 3000)
+                                        .astype(np.int8))])
+    m = tm.TorchMapper(gen, builder.build_index(gen, cfg), cfg,
+                       device="cpu", accumulate="device")
+    accs = [t for t in (m._cov_dev, m._tal_dev) if t is not None]
+    ptrs = [t.data_ptr() for t in accs]
+    G = len(gen.codes)
+    cov = rng.random(G)
+    tal = rng.random((G, 4)) if snp else None
+    m.load_accumulators(cov, tal)
+    got_cov, got_tal = m.fetch_accumulators()
+    assert np.array_equal(got_cov, cov.astype(np.float32))
+    if snp:
+        assert np.array_equal(got_tal, tal.astype(np.float32))
+    m.reset_accumulators()
+    assert not any(bool(t.any()) for t in accs)
+    now = [t for t in (m._cov_dev, m._tal_dev) if t is not None]
+    assert [t.data_ptr() for t in now] == ptrs and len(now) == 1 + snp
 
 
 @pytest.mark.parametrize("n_live", [400, 1000])
@@ -165,12 +204,13 @@ def test_snp_device_pileup_within_the_configuration_limits(tmp_path, seed,
     gen = builder.Genome.from_contigs([(genome.contig, genome.codes)])
     m = tm.TorchMapper(gen, builder.build_index(gen, cfg), cfg,
                        device="cpu", accumulate="device")
-    counted = []
+    counted, lives = [], []
     real = tm.device_accumulate
 
     def spy(cfg_, B, pwm2, rows, cov, tal, n_live):
         counted.append(_independent_blocks(cfg_, rows, n_live,
                                            cov.shape[0] * 128))
+        lives.append(n_live)
         return real(cfg_, B, pwm2, rows, cov, tal, n_live=n_live)
 
     monkeypatch.setattr(tm, "device_accumulate", spy)
@@ -186,7 +226,10 @@ def test_snp_device_pileup_within_the_configuration_limits(tmp_path, seed,
         sum(counted) > 0
     assert profiling.value_sum("accumulate.blocks", t0, t1) == sum(counted)
     rec = profiling.VALS.rows(t0, t1)
-    assert len(rec) == len(counted)
+    assert len(rec) == 2 * len(counted)
+    assert len(profiling.values("accumulate.blocks", t0, t1)) == \
+        len(counted)
+    assert profiling.values("accumulate.tier", t0, t1).tolist() == lives
     assert c1["accumulate.hits"] - c0["accumulate.hits"] >= sum(counted)
 
     og = oracle.OracleGenome.from_codes([(genome.contig, genome.codes)])

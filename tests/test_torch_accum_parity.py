@@ -159,10 +159,23 @@ def test_device_accumulate_no_live_hit_equals_jax(snp):
     _device_accumulate_vs_jax(3, snp, 0, 0)
 
 
-def _device_accumulate_vs_jax(seed, snp, n_live, n):
+@pytest.mark.parametrize("n", [127, 128, 129, 255, 300])
+@pytest.mark.parametrize("snp", [True, False])
+def test_device_accumulate_at_the_tier_equals_jax_bits(snp, n):
+    """n live hits in H = 384 slots, on both sides of a tier edge:
+    device_accumulate on acc_tier(n, H) slots (what TorchMapper runs) and
+    on n slots both equal the reference over all H, bit for bit."""
+    H = 384
+    tier = tm.acc_tier(n, H)
+    assert n <= tier <= H and tier % 128 == 0 and tier - n < 128
+    for n_live in (tier, n):
+        _device_accumulate_vs_jax(4, snp, n_live, n, H)
+
+
+def _device_accumulate_vs_jax(seed, snp, n_live, n, H=128):
     cfg = MapperConfig(mer_size=10, batch_size=4, max_read_len=104,
-                       hit_capacity=16, snp_mode=snp)
-    rows, pwm2 = _synthetic_rows(seed, n)
+                       hit_capacity=H // 8, snp_mode=snp)
+    rows, pwm2 = _synthetic_rows(seed, n, H=H)
     rng = np.random.default_rng(seed + 10)
     Gpad = jm.acc_padded_len(cfg, 4096)
     cov = rng.random((Gpad // 128, 128)).astype(np.float32)

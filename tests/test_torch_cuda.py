@@ -935,7 +935,7 @@ def test_graph_stream_with_the_ring_full_equals_eager(path):
     out = {}
     for graphed in (True, False):
         m = tm.TorchMapper(gen, idx, cfg, device=dev, **kw)
-        m._programs.graphed = graphed
+        m._programs.graphed = m._acc_programs.graphed = graphed
         submit = m.submit
 
         def slow_submit(batch, _submit=submit):
@@ -951,3 +951,131 @@ def test_graph_stream_with_the_ring_full_equals_eager(path):
     assert np.array_equal(out[True][1], out[False][1])
     assert np.array_equal(out[True][2], out[False][2])
     assert out[True][3] == out[False][3] > 1900
+
+
+@pytest.mark.parametrize("variant", ["snp", "coverage", "sam"])
+def test_accumulate_graphs_equal_eager_over_tiers_and_slots(variant):
+    """The accumulate program through its captured graphs
+    (pipeline/graphs.py AccPrograms, one a staging slot and tier of
+    n_keep), in each of its variants: SNP mode (coverage and tallies, B5's
+    pair entry), coverage only (B5's single job) and SNP mode with SAM
+    written (finish_acc decodes the blob).  Twelve batches of 256 reads
+    (H = 1,024 slots), every third inside the copies of 3-copy repeat
+    families, so that n_keep falls in two or more tiers on all four
+    staging slots, then a batch of indel reads that overflows the indel
+    capacity.  Coverage, tallies and SAM records equal the eager
+    program's on the card bit for bit; one capture a (slot, tier), a
+    replay for every other batch; the overflow batch, after the replays,
+    goes through the host path, and the stream's accumulators stay within
+    f32 tolerance of host accumulation's."""
+    from gnumap_tpu_torch.utils import profiling
+    dev = _card()
+    cfg = MapperConfig(mer_size=12, seed_jump=5, batch_size=256,
+                       max_read_len=104, max_candidates=32, hit_capacity=2,
+                       sgr_out=True, snp_mode=variant != "coverage",
+                       sam_out=variant == "sam")
+    g, spots = sim.random_genome_families(200_000, seed=9, n_families=4,
+                                          copies=3, unit_len=300)
+    gen = builder.Genome.from_contigs([("ref_sim", g)])
+    idx = builder.build_index(gen, cfg)
+    inside = (np.concatenate(spots)[:, None] + np.arange(0, 200, 20)).ravel()
+    reads = []
+    for k in range(12):
+        reads += sim.simulate_reads(
+            g, 256, 100, seed=60 + k, sub_rate=0.01, contig="ref_sim",
+            positions=inside if k % 3 == 2 else None)
+    reads += sim.simulate_reads(g, 256, 100, seed=72, sub_rate=0.01,
+                                indel_rate=0.6, contig="ref_sim")
+    recs = [io_fastq.ReadRecord(
+        r.name, packing.encode(r.seq), None,
+        (np.frombuffer(r.qual.encode(), np.uint8) - 33).astype(np.int16))
+        for r in reads]
+    batches = list(io_fastq.batch_reads(iter(recs), cfg))
+    assert len(batches) == 13
+    out = {}
+    for mode in ("graph", "eager", "host"):
+        m = tm.TorchMapper(gen, idx, cfg, device=dev,
+                           accumulate="host" if mode == "host" else "device")
+        m._acc_programs.graphed = mode == "graph"
+        c0 = profiling.counters()
+        t0 = profiling._now()
+        res = tm.map_stream(m, iter(batches), collect_sam=cfg.sam_out)
+        c1 = profiling.counters()
+        out[mode] = res
+        if mode == "host":
+            continue
+        assert c1["finish.overflow"] - c0["finish.overflow"] == 1
+        tiers = profiling.values("accumulate.tier", t0, profiling._now())
+        assert len(tiers) == 12 and len(set(tiers.tolist())) >= 2
+        captures = c1["accumulate.captures"] - c0["accumulate.captures"]
+        replays = c1["accumulate.replays"] - c0["accumulate.replays"]
+        if mode == "eager":
+            assert captures == replays == 0
+            continue
+        # a key is (name, the 9 rows, pwm2, tier, cov, tal)
+        keys = list(m._acc_programs.captured)
+        ptrs = {s.kept["pwm2"].data_ptr(): i
+                for i, s in enumerate(m._ring.slots)}
+        assert len(ptrs) == 4
+        assert {(ptrs[k[10][0]], k[11]) for k in keys} == \
+            {(b % 4, int(t)) for b, t in enumerate(tiers)}
+        assert captures == len(keys) and replays == 12 - captures > 0
+    g_, e_, h_ = out["graph"], out["eager"], out["host"]
+    assert np.array_equal(g_.coverage, e_.coverage)
+    assert g_.stats.n_mapped == e_.stats.n_mapped == h_.stats.n_mapped
+    assert g_.stats.n_multi == h_.stats.n_multi > 300
+    np.testing.assert_allclose(g_.coverage, h_.coverage, rtol=1e-5,
+                               atol=1e-5)
+    if cfg.snp_mode:
+        assert np.array_equal(g_.tallies, e_.tallies)
+        np.testing.assert_allclose(g_.tallies, h_.tallies, rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        assert g_.tallies is e_.tallies is None
+    if cfg.sam_out:
+        assert g_.sam_lines == e_.sam_lines == h_.sam_lines
+        assert "".join(g_.sam_lines).count("\n") > 3000
+
+
+def test_captured_accum_launch_replays_equal_eager():
+    """B5's cooperative launch inside a CUDA graph: the pair entry,
+    captured once, replayed on three delta sets copied into its inputs,
+    gives the eager launches' accumulators bit for bit, with the span
+    starts in order and out of order (the graph zeroes its own order flag
+    before each replay's launch)."""
+    dev = _card()
+    rng = np.random.default_rng(11)
+    sets = [_accum_set(rng, 3000, 1, n, order, 512) for n, order in
+            [(2989, "sorted"), (811, "shuffled"), (2000, "sorted")]]
+    tal0 = torch.from_numpy(rng.random((2048, 128)).astype(np.float32))
+    cov0 = sets[0][0]
+    base = torch.empty(3000, dtype=torch.int32, device=dev)
+    n_real = torch.empty((), dtype=torch.int32, device=dev)
+    cd = torch.empty(sets[0][2].shape, device=dev)
+    td = torch.empty((3000, cd.shape[1] * 4, 128), device=dev)
+    eager = [cov0.to(dev), tal0.to(dev)]
+    graphed = [cov0.to(dev), tal0.to(dev)]
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    n0 = accum.LAUNCHES
+    for k, (_, b, d, n) in enumerate(sets):
+        t = torch.from_numpy(rng.random((3000, d.shape[1] * 4, 128))
+                             .astype(np.float32))
+        accum.apply_deltas_pair(*eager, b.to(dev), d.to(dev), t.to(dev),
+                                n.to(dev))
+        base.copy_(b)
+        n_real.copy_(n)
+        cd.copy_(d)
+        td.copy_(t)
+        if k == 0:
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                graph.capture_begin(capture_error_mode="thread_local")
+                accum.apply_deltas_pair(*graphed, base, cd, td, n_real)
+                graph.capture_end()
+            torch.cuda.current_stream().wait_stream(side)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(graphed[0], eager[0])
+        assert torch.equal(graphed[1], eager[1])
+    assert accum.LAUNCHES == n0 + 4

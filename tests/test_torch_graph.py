@@ -2,8 +2,9 @@
 the counterpart of the JAX package's jax.jit sites), on the CPU.
 
   * A host-read guard: every device program that TorchMapper captures on a
-    card (tb and packed, on packed reads and on PWMs, and the accumulate
-    path's map program; every index kind; banded and unbanded) runs under a
+    card (tb and packed, on packed reads and on PWMs, the accumulate
+    path's map program and the accumulate program itself at its tier of
+    slots; every index kind; banded and unbanded) runs under a
     TorchDispatchMode that records each op reading a value back to the host
     or sizing its output by the data.  A CUDA graph can hold none of them.
     The kernel wrappers' plain versions run outside the mode: on the card
@@ -14,6 +15,11 @@ the counterpart of the JAX package's jax.jit sites), on the CPU.
   * The mapper through that stand-in: map_stream's depth-3 pipeline, whose
     batches in flight share the static outputs, gives the eager mapper's
     SAM, SGR and accumulators on every path that captures.
+  * AccPrograms (the accumulate program, one graph a staging slot and tier
+    of n_keep) through a stand-in graph that reruns the program on the
+    arguments it was captured with: the eager mapper's accumulators over
+    batches on every slot and two tiers, one capture a key, a replay for
+    every other batch.
 
 That submit on the CPU still gives the JAX package's blob is held by
 tests/test_torch_devtb.py and tests/test_torch_mapper.py, which compare it.
@@ -35,7 +41,8 @@ from gnumap_tpu_torch.index import builder, fm
 from gnumap_tpu_torch.io import fastq as io_fastq
 from gnumap_tpu_torch.pipeline import graphs, mapper as tm
 from gnumap_tpu_torch.pipeline.staging import StagingRing
-from gnumap_tpu_torch.utils import sim
+from gnumap_tpu_torch.posterior import accum
+from gnumap_tpu_torch.utils import profiling, sim
 
 torch.set_num_threads(1)
 
@@ -45,9 +52,11 @@ HOST_READS = {"_local_scalar_dense", "nonzero", "masked_select", "_unique2",
               "unique_consecutive", "is_nonzero", "equal", "item"}
 # the kernel wrappers, whose CPU form is the plain version
 WRAPPERS = ((nw_band, "nw_scores_banded"), (nw_full, "nw_scores_full"),
-            (nw_pure, "nw_pure_banded"), (nw_tb, "nw_traceback"))
+            (nw_pure, "nw_pure_banded"), (nw_tb, "nw_traceback"),
+            (accum, "apply_deltas"), (accum, "apply_deltas_pair"))
 PROGRAMS = ("_device_map_tb_q", "_device_map_tb", "_device_map_packed_q",
-            "_device_map_packed", "_device_map_acc_q", "_device_map_acc")
+            "_device_map_packed", "_device_map_acc_q", "_device_map_acc",
+            "_apply_acc")
 KINDS = ("csr", "csr_bs", "fm", "fm_bs")
 
 
@@ -122,7 +131,13 @@ def _built(kind, banded):
     return cfg, gen, idx, list(io_fastq.batch_reads(iter(recs), cfg))
 
 
-def _args(name, batch):
+def _args(name, batch, m=None):
+    """The program's arguments for ``batch``; the accumulate program's are
+    the rows and PWMs of ``m``'s map program and the batch's tier."""
+    if name == "_apply_acc":
+        _, rows, nvk, pwm2 = m._device_map_acc_q(*_args("_device_map_acc_q",
+                                                       batch))
+        return rows, pwm2, tm.acc_tier(int(nvk[1]), rows["valid_h"].shape[0])
     t = torch.from_numpy
     lens = t(np.asarray(batch.lens, np.int32))
     if name.endswith("_q"):
@@ -137,17 +152,21 @@ def _args(name, batch):
 @pytest.mark.parametrize("kind", KINDS)
 def test_device_programs_read_nothing_back(guard, kind, banded, program):
     cfg, gen, idx, batches = _workload(kind, banded)
-    m = tm.TorchMapper(gen, idx, cfg, device="cpu")
+    m = tm.TorchMapper(gen, idx, cfg, device="cpu", accumulate="device")
     fn = getattr(m, program)
-    args = _args(program, batches[0])
+    args = _args(program, batches[0], m)
     want = fn(*args)
+    cov = m._cov_dev.clone()
     with guard:
         got = fn(*args)
     assert guard.seen == []
     assert all(torch.equal(a, b) for a, b in zip(pytree.tree_leaves(got),
                                                   pytree.tree_leaves(want)))
     # the workload retains hits: the traceback and its compaction run
-    if program.startswith("_device_map_acc"):
+    if program == "_apply_acc":
+        assert int(got[0][3]) > 0 and int(got[1]) > 0   # n_keep, blocks
+        assert not torch.equal(m._cov_dev, cov)         # in place
+    elif program.startswith("_device_map_acc"):
         assert int(got[1]["n_keep"]) > 0
     elif program.startswith("_device_map_tb"):
         assert int(got[-3]) > 0                     # blob tail: n_keep
@@ -391,3 +410,102 @@ def test_capacity_overflow_remaps_through_its_own_program(counters):
     assert out[False][0] == out[True][0]
     assert np.array_equal(out[False][1], out[True][1])
     assert out[False][3] == out[True][3] > 40
+
+
+# ---------------------------------------------------------------------------
+# AccPrograms with a stand-in graph
+# ---------------------------------------------------------------------------
+
+class StandInAccGraph:
+    """In place of a captured accumulate program on the CPU: replay() runs
+    the program again on the arguments it was captured with (the same
+    slot buffers, as a replay reads the same addresses) and keeps its
+    outputs in ``last``; the launch counters stay as they were.  It holds
+    the buffers that Slot.keep's views are views of, and no view: a graph
+    holds addresses, and a live view would keep its slot busy."""
+
+    def __init__(self, fn, args):
+        self.fn, self.last = fn, None
+        self.args = pytree.tree_map(
+            lambda t: t._base if isinstance(t, torch.Tensor)
+            and t._base is not None else t, args)
+
+    def replay(self):
+        before = graphs._counts()
+        self.last = self.fn(*self.args)
+        for mod, n in zip(graphs.KERNEL_MODULES, before):
+            mod.LAUNCHES = n
+
+
+class StandInAccPrograms(graphs.AccPrograms):
+    def __init__(self):
+        super().__init__("cpu")
+        self.graphed = True
+
+    def _capture(self, fn, args):
+        return StandInAccGraph(fn, args), None
+
+    def _replay(self, cap):
+        cap.replay()
+        return cap.graph.last
+
+
+def _tier_batches():
+    """Twelve batches of 64 reads (H = 512 slots), every third of them
+    reads inside the copies of a 3-copy repeat family, so that n_keep
+    falls in two tiers, and each tier on more than one staging slot."""
+    cfg = MapperConfig(mer_size=8, seed_jump=3, batch_size=64,
+                       max_read_len=40, max_candidates=16, hit_capacity=4,
+                       sgr_out=True, snp_mode=True)
+    g, spots = sim.random_genome_families(20_000, seed=35, n_families=2,
+                                          copies=3, unit_len=120)
+    gen = builder.Genome.from_contigs([("a", g)])
+    idx = builder.build_index(gen, cfg)
+    inside = (np.concatenate(spots)[:, None] + np.arange(0, 80, 10)).ravel()
+    reads = []
+    for k in range(12):
+        reads += sim.simulate_reads(
+            g, 64, 36, seed=50 + k, sub_rate=0.01, contig="a",
+            positions=inside if k % 3 == 2 else None)
+    recs = [io_fastq.ReadRecord(
+        r.name, packing.encode(r.seq), None,
+        (np.frombuffer(r.qual.encode(), np.uint8) - 33).astype(np.int16))
+        for r in reads]
+    return cfg, gen, idx, list(io_fastq.batch_reads(iter(recs), cfg))
+
+
+def test_stand_in_accumulate_graphs_accumulate_as_eager(counters):
+    cfg, gen, idx, batches = _tier_batches()
+    out = {}
+    for graphed in (False, True):
+        m = tm.TorchMapper(gen, idx, cfg, device="cpu", accumulate="device")
+        if graphed:
+            m._acc_programs = StandInAccPrograms()
+        c0 = profiling.counters()
+        t0 = profiling._now()
+        res = tm.map_stream(m, iter(batches), collect_sam=False)
+        c1 = profiling.counters()
+        tiers = profiling.values("accumulate.tier", t0, profiling._now())
+        out[graphed] = (res.coverage, res.tallies, res.stats.n_mapped)
+        captures = c1["accumulate.captures"] - c0["accumulate.captures"]
+        replays = c1["accumulate.replays"] - c0["accumulate.replays"]
+        assert len(tiers) == len(batches) == 12
+        assert sorted(set(tiers.tolist())) == [128, 256]
+        if not graphed:
+            assert captures == replays == 0
+            continue
+        keys = list(m._acc_programs.captured)
+        assert captures == len(keys) and replays == 12 - len(keys)
+        # one key a (staging slot, tier); a key is (name, the 9 rows,
+        # pwm2, tier, cov, tal), and the ring hands out its slots in turn
+        ptrs = {s.kept["pwm2"].data_ptr(): i
+                for i, s in enumerate(m._ring.slots)}
+        assert len(ptrs) == 4
+        got = {(ptrs[k[10][0]], k[11]) for k in keys}
+        assert got == {(b % 4, int(t)) for b, t in enumerate(tiers)}
+        assert 4 < len(keys) < 12
+        assert sum(c.replays for c in m._acc_programs.captured.values()) \
+            == replays
+    for a, b in zip(out[False], out[True]):
+        assert np.array_equal(a, b)
+    assert out[True][2] > 700

@@ -125,6 +125,35 @@ def test_ring_never_reuses_a_slot_in_flight():
     held.append(m.submit(batches[SLOTS + 1]))
 
 
+def test_kept_rows_alone_keep_their_slot_out_of_the_ring():
+    """The accumulate path's submit copies a batch's hit rows and PWMs into
+    device buffers its slot keeps (Slot.keep), which the batch's finish
+    reads.  With every other view of the batch dropped (its stats' and
+    blob's fetches), the rows alone keep the slot out of the ring, and
+    their values unchanged, until they are dropped."""
+    cfg = TMapperConfig(mer_size=8, seed_jump=4, max_read_len=40,
+                        batch_size=10, snp_mode=True)
+    gen = tbuilder.Genome.from_fasta(FA)
+    m = tm.TorchMapper(gen, tbuilder.build_index(gen, cfg), cfg,
+                       device="cpu", accumulate="device")
+    batches = _batches(cfg)
+    held = [m.submit(b) for b in batches[:SLOTS]]   # every slot in flight
+    with pytest.raises(RuntimeError, match="staging ring"):
+        m.submit(batches[SLOTS])
+    m.finish(batches[0], held.pop(0))
+    rows, pwm2 = held.pop(0)[:2]          # batch 1's kept rows only
+    want = {k: v.clone() for k, v in rows.items()}, pwm2.clone()
+    # one slot is finished and one is held by the rows alone: the ring
+    # hands out the finished one, then refuses
+    held.append(m.submit(batches[SLOTS]))
+    with pytest.raises(RuntimeError, match="staging ring"):
+        m.submit(batches[SLOTS + 1])
+    assert all(torch.equal(rows[k], want[0][k]) for k in rows)
+    assert torch.equal(pwm2, want[1])
+    del rows, pwm2
+    held.append(m.submit(batches[SLOTS + 1]))
+
+
 def test_cli_with_the_ring_equals_jax(tmp_path):
     """The port's CLI on the CPU at -B 10 (20 batches through a ring of
     SLOTS slots) writes the JAX CLI's SAM body and SGR bytes."""
