@@ -826,7 +826,9 @@ def decode_tb_blob(cfg: MapperConfig, B: int, n: int, lens_np, blob):
     weights are normalized over the deduped set in float64; each read's
     hits sorted by (pos, '+' before '-').  Only the indel-bearing hits'
     CIGARs are decoded (nw_tb.decode_ops); every other hit is a pure
-    match of its read's length."""
+    match of its read's length.  The span ``finish.posterior``
+    (utils/profiling.py) covers the dedupe, the weights and the emission
+    order."""
     C = cfg.max_candidates
     H = cfg.hit_capacity * 2 * B
     K = max(64, H // 32)
@@ -852,20 +854,22 @@ def decode_tb_blob(cfg: MapperConfig, B: int, n: int, lens_np, blob):
     idx = np.nonzero(real)[0]
     if len(idx) == 0:
         return BatchHits.empty(n), n_keep, n_valid
-    order = idx[np.lexsort((-sc[idx], pos[idx], minus[idx], b_idx[idx]))]
-    bo, mo, po = b_idx[order], minus[order], pos[order]
-    first = np.empty(len(order), bool)
-    first[0] = True
-    first[1:] = (bo[1:] != bo[:-1]) | (mo[1:] != mo[:-1]) \
-        | (po[1:] != po[:-1])
-    winners = order[first]
-    totals = np.bincount(b_idx[winners],
-                         weights=sc[winners].astype(np.float64),
-                         minlength=n)
-    # emission order: (read, pos, strand) ascending
-    emit = winners[np.lexsort((minus[winners], pos[winners],
-                               b_idx[winners]))]
-    w_emit = sc[emit].astype(np.float64) / totals[b_idx[emit]]
+    with profiling.span("finish.posterior"):
+        order = idx[np.lexsort((-sc[idx], pos[idx], minus[idx],
+                                b_idx[idx]))]
+        bo, mo, po = b_idx[order], minus[order], pos[order]
+        first = np.empty(len(order), bool)
+        first[0] = True
+        first[1:] = (bo[1:] != bo[:-1]) | (mo[1:] != mo[:-1]) \
+            | (po[1:] != po[:-1])
+        winners = order[first]
+        totals = np.bincount(b_idx[winners],
+                             weights=sc[winners].astype(np.float64),
+                             minlength=n)
+        # emission order: (read, pos, strand) ascending
+        emit = winners[np.lexsort((minus[winners], pos[winners],
+                                   b_idx[winners]))]
+        w_emit = sc[emit].astype(np.float64) / totals[b_idx[emit]]
     ref_len = lens_h[emit].astype(np.int32)
     gapped = np.nonzero(islot[emit] >= 0)[0]
     cigars = []
@@ -1344,13 +1348,18 @@ class TorchMapper:
                      ) -> BatchHits:
         """Decode the device traceback blob into the batch's hit table
         (decode_tb_blob: dedupe by (strand, pos), posterior weights).  No
-        DP on the host."""
+        DP on the host.  Records the batch's ``finish.kept`` (n_keep) and
+        ``finish.gapped`` (n_indel) in utils/profiling.py's value ring once,
+        before the decode, so a batch that overflows records them too."""
         cfg = self.cfg
         with profiling.span("finish.wait") as w:
             blob, done = dev_out
             if done is not None:
                 done.synchronize()
             blob = blob.numpy()
+        n_keep, n_indel = int(blob[-3]), int(blob[-1])
+        profiling.record("finish.kept", n_keep)
+        profiling.record("finish.gapped", n_indel)
         B = batch.codes.shape[0]
         with profiling.span("finish.decode") as d:
             decoded = decode_tb_blob(cfg, B, batch.n, batch.lens, blob)
@@ -1363,7 +1372,7 @@ class TorchMapper:
             logging.getLogger(__name__).warning(
                 "device-finish hit-capacity overflow "
                 "(n_keep=%d n_indel=%d, H=%d K=%d): host-path fallback",
-                int(blob[-3]), int(blob[-1]), H, max(64, H // 32))
+                n_keep, n_indel, H, max(64, H // 32))
             profiling.COUNTS["finish.overflow"] += 1
             return self.finish_host(batch, self._remap_packed(batch), stats)
         out, _, n_valid = decoded
@@ -1557,9 +1566,11 @@ def _emit_sam_py(emit, gen: Genome, batch: ReadBatch, hits_per_read, gp,
                     and (bool(gp["mapped"][b]) or gp_host != 0)):
                 emit(sam_io.unmapped_record(batch.names[b], seq, qual))
             continue
+        profiling.COUNTS["hits.multi"] += len(hits) > 1
         for hi, h in enumerate(hits):
             ci, off = gen.locate(h.pos)
             sec = (hi > 0) if h.primary is None else not h.primary
+            profiling.COUNTS["sam.secondary"] += sec
             flag = (16 if h.strand == "-" else 0) | (256 if sec else 0)
             if h.strand == "-":
                 oseq = packing.decode(packing.revcomp(codes))
@@ -1585,7 +1596,8 @@ def format_sam_batch_native(gen: Genome, batch: ReadBatch, hits_per_read,
     hits = BatchHits.of(hits_per_read)
     n = batch.n
     lens = batch.lens
-    none = hits.counts() == 0
+    per_read = hits.counts()
+    none = per_read == 0
     if gp is not None:
         skip = none & (np.asarray(gp["mapped"][:n], bool) | (host_id != 0))
         unmapped = (none & ~skip).astype(np.uint8)
@@ -1595,6 +1607,8 @@ def format_sam_batch_native(gen: Genome, batch: ReadBatch, hits_per_read,
     # secondary: a hit after its read's first, or primary False
     rank = np.arange(len(hits.read)) - hits.offsets[hits.read]
     sec = np.where(hits.primary < 0, rank > 0, hits.primary == 0)
+    profiling.COUNTS["sam.secondary"] += int(sec.sum())
+    profiling.COUNTS["hits.multi"] += int((per_read > 1).sum())
     flags = hits.minus.astype(np.int32) * 16 | sec.astype(np.int32) * 256
     # CIGARs: "" (a pure match of the read's length) but where given
     cig_b = [c.encode() for c in hits.cigars]

@@ -81,6 +81,10 @@ SPANS: Dict[str, str] = {
     "finish.decode": "the finish's host work on the fetched arrays: "
                      "decode_tb_blob, or the host finish, or the "
                      "accumulators' fold (BatchStats.host_s)",
+    "finish.posterior": "decode_tb_blob, inside finish.decode: the dedupe "
+                        "by (read, strand, pos), the per-read weight "
+                        "normalisation and the emission order, from the "
+                        "first lexsort to the weights",
     "finish.host": "host_finish: retention and traceback on the host",
     "finish.accumulate": "finish_acc: the accumulate program "
                          "(_apply_acc through AccPrograms): on a card the "
@@ -116,6 +120,10 @@ COUNTERS: Dict[str, str] = {
     "hits.lists": "conversions of a batch's hits between the hit table "
                   "and per-read ReadHit lists (BatchHits.from_lists, "
                   "the lists' first build)",
+    "hits.multi": "reads written with more than one SAM record (a "
+                  "multi-mapped read's co-best loci)",
+    "sam.secondary": "SAM records written with flag 256 (every record of "
+                     "a read after its first)",
     "accumulate.blocks": "unique 128-blocks handed to the ordered RMW "
                          "(csrc/accum_rmw.cu) by device_accumulate, where "
                          "finish_acc brings them home (SAM off)",
@@ -136,6 +144,12 @@ VALUES: Dict[str, str] = {
     "accumulate.tier": "a batch's tier of hit slots, the n_live its "
                        "accumulate program runs on (acc_tier), recorded "
                        "by finish_acc",
+    "finish.kept": "a batch's retained hits (n_keep, the blob's [-3]: "
+                   "B2's live hit slots), recorded by finish_devtb, an "
+                   "overflowing batch's too, before its fallback",
+    "finish.gapped": "a batch's indel-bearing hits (n_indel, the blob's "
+                     "[-1]: its rows of compacted traceback ops), recorded "
+                     "beside finish.kept",
 }
 _VIDS = {n: i for i, n in enumerate(VALUES)}
 
