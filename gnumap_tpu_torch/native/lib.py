@@ -90,7 +90,8 @@ def get_lib():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # score,xs,w
             ctypes.c_int64,                                      # Nh
             ctypes.c_void_p, ctypes.c_void_p,                    # unmapped,
-            ctypes.c_char_p, ctypes.c_int64]                     # skip; out
+            ctypes.c_void_p,                                     # skip; n_slow
+            ctypes.c_void_p, ctypes.c_int64]                     # out
         lib.format_sgr.restype = ctypes.c_int64
         lib.format_sgr.argtypes = [
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
@@ -307,8 +308,10 @@ def _sam_batch_args(codes, quals, lens, names, rnames,
                     cigars, hit_score, hit_xs, hit_weight,
                     unmapped, skip=None):
     """(arrays the C formatter reads, in its argument order without the
-    output buffer, capacity that bounds the output).  The arrays must stay
-    referenced while the formatter runs."""
+    output buffer, capacity that bounds the output).  The last array,
+    int64[1], is where the formatter writes its count of XS:f / XP:f
+    fields written by snprintf.  The arrays must stay referenced while the
+    formatter runs."""
     codes = np.ascontiguousarray(codes, np.int8)
     quals = np.ascontiguousarray(quals, np.int16)
     lens = np.ascontiguousarray(lens, np.int32)
@@ -340,13 +343,39 @@ def _sam_batch_args(codes, quals, lens, names, rnames,
     args = (codes, quals, lens, B, Lmax, name_b, name_off, rname_b,
             rname_off, hit_read, hit_flag, hit_rname, hit_pos, hit_mapq,
             cigar_b, cigar_off, hit_score, hit_xs, hit_weight, Nh, unmapped,
-            skip_arr)
+            skip_arr, np.zeros(1, np.int64))
     return args, cap
 
 
 def _c_args(args):
     """numpy arrays -> their data pointers (None stays NULL)."""
     return [a.ctypes.data if isinstance(a, np.ndarray) else a for a in args]
+
+
+_out = threading.local()
+
+
+def _out_buffer(cap: int) -> np.ndarray:
+    """This thread's SAM output buffer, at least ``cap`` bytes: reused from
+    batch to batch, grown geometrically, never zero-filled."""
+    buf = getattr(_out, "buf", None)
+    size = 0 if buf is None else len(buf)
+    if size < cap:
+        buf = _out.buf = np.empty(max(cap, 2 * size), np.uint8)
+    return buf
+
+
+def format_sam_batch_view(*args, **kwargs):
+    """format_sam_batch's output without a copy: (a memoryview of this
+    thread's output buffer, valid until the thread's next call; the XS:f /
+    XP:f fields the formatter wrote with snprintf, non-finite or
+    |x| >= 1e9).  Takes format_sam_batch's arguments."""
+    cargs, cap = _sam_batch_args(*args, **kwargs)
+    buf = _out_buffer(cap)
+    n = get_lib().format_sam_batch(*_c_args(cargs), buf.ctypes.data, cap)
+    if n < 0:
+        raise RuntimeError("format_sam_batch: output capacity exceeded")
+    return memoryview(buf)[:n], int(cargs[-1][0])
 
 
 def format_sam_batch(codes, quals, lens, names, rnames,
@@ -361,15 +390,11 @@ def format_sam_batch(codes, quals, lens, names, rnames,
     bool[B] to emit nothing for a read (genome-partitioned multi-host
     mode).  Raises RuntimeError if the output would exceed the capacity
     bound."""
-    args, cap = _sam_batch_args(
+    view, _ = format_sam_batch_view(
         codes, quals, lens, names, rnames, hit_read, hit_flag, hit_rname,
         hit_pos, hit_mapq, cigars, hit_score, hit_xs, hit_weight, unmapped,
         skip)
-    out = ctypes.create_string_buffer(cap)
-    n = get_lib().format_sam_batch(*_c_args(args), out, cap)
-    if n < 0:
-        raise RuntimeError("format_sam_batch: output capacity exceeded")
-    return out.raw[:n]
+    return view.tobytes()
 
 
 def format_sgr(name: str, pos: np.ndarray, val: np.ndarray) -> bytes:

@@ -7,11 +7,14 @@
 // flag, contig, position, mapq, cigar, score, weight) and per-read (codes,
 // quals, names; names, contig names and cigars as UTF-8 bytes with byte
 // offsets); output is one contiguous buffer, byte-identical to the UTF-8
-// encoding of io/sam.py record()/unmapped_record() (printf "%.4f"/"%.6f"
-// and Python's format(x, '.4f') are both correctly rounded, so the float
-// fields agree bit-for-bit; property-tested in tests/test_native.py).  No
-// write passes out_cap: every snprintf's return is checked.
+// encoding of io/sam.py record()/unmapped_record().  XS:f / XP:f are
+// Python's format(x, '.4f') / format(x, '.6f'): correctly rounded, ties to
+// even on the exact binary value, as printf's "%.4f" / "%.6f" are.  An
+// exact integer formatter writes every finite |x| < 1e9 (put_fixed);
+// snprintf writes the rest and they are counted.  No write passes out_cap:
+// each record's room is checked before it, every snprintf's return after.
 
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -36,11 +39,63 @@ inline char* put_u(char* p, int64_t v) {
     return p;
 }
 
+const uint64_t POW10[7] = {1, 10, 100, 1000, 10000, 100000, 1000000};
+
+// x as "%.<PREC>f" writes it, for finite |x| < 1e9: at most 1 + 10 + 1 +
+// PREC bytes (just under 1e9 may round up to it).  x = m / 2^s exactly,
+// so x * 10^PREC = m * 10^PREC / 2^s: m * 10^PREC < 2^73 fits 128 bits,
+// the quotient (at most 1e15) 64.  The quotient is rounded half to even
+// on the remainder; the sign comes from the sign bit, so -0.0 and small
+// negatives give "-0.0000".
+template <int PREC>
+inline char* put_fixed(char* p, double x) {
+    uint64_t bits;
+    std::memcpy(&bits, &x, sizeof bits);
+    if (bits >> 63) *p++ = '-';
+    const int be = (int)((bits >> 52) & 0x7ff);
+    uint64_t m = bits & ((1ull << 52) - 1);
+    int s = 1074;                                   // subnormal or zero
+    if (be) { m |= 1ull << 52; s = 1075 - be; }     // |x| < 2^30: s >= 23
+    uint64_t n = 0;
+    if (s < 100) {          // else x * 10^PREC < 2^-27 rounds to 0
+        const unsigned __int128 v = (unsigned __int128)m * POW10[PREC];
+        const unsigned __int128 one = 1;
+        const unsigned __int128 r = v & ((one << s) - 1);
+        const unsigned __int128 half = one << (s - 1);
+        n = (uint64_t)(v >> s);
+        if (r > half || (r == half && (n & 1))) ++n;
+    }
+    p = put_u(p, (int64_t)(n / POW10[PREC]));
+    *p++ = '.';
+    uint64_t f = n % POW10[PREC];
+    for (int i = PREC - 1; i >= 0; --i) {
+        p[i] = (char)('0' + f % 10);
+        f /= 10;
+    }
+    return p + PREC;
+}
+
+// "<tag><x as %.<PREC>f>", tag 6 bytes ("\tXS:f:"); nullptr if it would
+// pass end.  One byte is always left after it, for the record's '\n'.
+template <int PREC>
+inline char* put_float_tag(char* p, char* end, const char* tag, double x,
+                           int64_t* n_slow) {
+    if (end - p < 6 + 13 + PREC) return nullptr;
+    p = put_str(p, tag, 6);
+    if (std::fabs(x) < 1e9) return put_fixed<PREC>(p, x);  // NaN: false
+    ++*n_slow;
+    const int r = std::snprintf(p, (size_t)(end - p), "%.*f", PREC, x);
+    if (r < 0 || r >= end - p) return nullptr;
+    return p + r;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns bytes written, or -1 if out_cap would be exceeded.
+// Returns bytes written, or -1 if out_cap would be exceeded; *n_slow is
+// set to the XS:f / XP:f fields written by snprintf (non-finite, or
+// |x| >= 1e9).
 int64_t format_sam_batch(
     const int8_t* codes, const int16_t* quals, const int32_t* lens,
     int32_t B, int32_t Lmax,
@@ -59,9 +114,11 @@ int64_t format_sam_batch(
     int64_t Nh,
     const uint8_t* unmapped,                           // [B]
     const uint8_t* skip,                               // [B] emit nothing
+    int64_t* n_slow,
     char* out, int64_t out_cap) {
     char* p = out;
     char* end = out + out_cap;
+    *n_slow = 0;
     // per-read forward/reverse seq + qual scratch
     thread_local char *fseq = nullptr, *rseq = nullptr,
                       *fq = nullptr, *rq = nullptr;
@@ -148,11 +205,11 @@ int64_t format_sam_batch(
             } else {
                 p = put_u(p, hit_score[h]);
             }
-            const int r = std::snprintf(p, (size_t)(end - p),
-                                        "\tXS:f:%.4f\tXP:f:%.6f\n",
-                                        hit_xs[h], hit_weight[h]);
-            if (r < 0 || r >= end - p) return -1;
-            p += r;
+            p = put_float_tag<4>(p, end, "\tXS:f:", hit_xs[h], n_slow);
+            if (p) p = put_float_tag<6>(p, end, "\tXP:f:", hit_weight[h],
+                                        n_slow);
+            if (!p) return -1;
+            *p++ = '\n';
         }
     }
     return p - out;

@@ -42,6 +42,7 @@ layer is dist/multihost.py.
 
 from __future__ import annotations
 
+import codecs
 import dataclasses
 import os
 from typing import Dict, Iterable, List, Optional, Tuple
@@ -1630,12 +1631,14 @@ def format_sam_batch_native(gen: Genome, batch: ReadBatch, hits_per_read,
     else:
         ci = off = mq = np.zeros(0, np.int32)
     sc = hits.score
-    buf = native_lib.format_sam_batch(
+    view, n_slow = native_lib.format_sam_batch_view(
         batch.codes[:n], batch.quals[:n], lens[:n], batch.names[:n],
         gen.names, hits.read, flags, ci.astype(np.int32),
         off.astype(np.int64), mq, (b"".join(cig_b), cig_off), sc,
         sc.astype(np.float64) / SCORE_ONE, w, unmapped, skip=skip)
-    return buf.decode("utf-8")
+    profiling.COUNTS["sam.float_slow"] += n_slow
+    # one pass from the reused output buffer to the str the sink takes
+    return codecs.utf_8_decode(view)[0]
 
 
 def _scatter_coverage(coverage: np.ndarray, hits: BatchHits) -> None:

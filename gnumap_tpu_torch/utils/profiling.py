@@ -124,6 +124,8 @@ COUNTERS: Dict[str, str] = {
                   "multi-mapped read's co-best loci)",
     "sam.secondary": "SAM records written with flag 256 (every record of "
                      "a read after its first)",
+    "sam.float_slow": "XS:f / XP:f fields the native SAM formatter wrote "
+                      "with snprintf (non-finite, or |x| >= 1e9)",
     "accumulate.blocks": "unique 128-blocks handed to the ordered RMW "
                          "(csrc/accum_rmw.cu) by device_accumulate, where "
                          "finish_acc brings them home (SAM off)",

@@ -403,6 +403,33 @@ def test_sam_text_of_an_empty_and_an_unmapped_batch(native):
                                       tm.BatchHits.empty(0)) == ""
 
 
+def test_sam_text_of_consecutive_batches_and_the_float_counter(native):
+    """format_sam_batch_native on a batch, a larger one that outgrows the
+    formatter's reused output buffer, then a smaller one: each text equals
+    io/sam.py's records of its own batch, with nothing left over from the
+    batch before.  ``sam.float_slow`` stays 0 on such scores and weights
+    and counts a weight the snprintf fallback writes (inf)."""
+    gen = _genome()
+    native_lib._out.__dict__.pop("buf", None)
+    c0 = profiling.COUNTS["sam.float_slow"]
+    sizes = []
+    for B, seed in ((6, 41), (48, 42), (5, 43)):
+        batch = _batch(B, B, seed)
+        table = tm.BatchHits.from_lists(
+            B, _hit_lists(gen, batch, seed, False))
+        got = tm.format_sam_batch_native(gen, batch, table)
+        py = []
+        tm._emit_sam_py(py.append, gen, batch, table.to_lists(), None, 0)
+        assert got == "".join(py)
+        sizes.append(len(native_lib._out.buf))
+    assert sizes[0] < sizes[1] == sizes[2]
+    assert profiling.COUNTS["sam.float_slow"] == c0
+    table = tm.BatchHits.from_lists(B, table.to_lists())
+    table.weight[0] = np.inf
+    assert "\tXP:f:inf\n" in tm.format_sam_batch_native(gen, batch, table)
+    assert profiling.COUNTS["sam.float_slow"] == c0 + 1
+
+
 @pytest.mark.parametrize("use_native", [True, False])
 @pytest.mark.parametrize("gapped", [False, True])
 def test_scatters_equal_from_table_and_rows(use_native, gapped,

@@ -702,6 +702,124 @@ def test_native_sam_formatter_never_writes_past_its_capacity(native_libs):
                               np.array([2.5])) == b"chrA\t7\t2.5000\n"
 
 
+def _float_values():
+    """XS:f / XP:f values for the exact float path: ties to even at four
+    and six decimals, zeros, the smallest subnormal, either side of 1e9
+    (just under it rounds up to 1000000000), the snprintf fallback's NaN
+    and infinities, and 10,000 doubles of random exponents."""
+    rng = np.random.default_rng(27)
+    below = np.nextafter(1e9, 0.0)
+    special = [0.03125, -0.03125, 1.03125, 0.0078125, 0.5078125, -0.0,
+               0.0, 1.0, 0.99999995, 5e-324, -5e-324, 0.00005, 0.0000005,
+               999999999.99995, below, -below, 1e9, -1e9,
+               np.nextafter(1e9, 2e9), float("nan"), float("inf"),
+               float("-inf")]
+    rand = (np.ldexp(1.0 + rng.random(10_000), rng.integers(-60, 46, 10_000))
+            * rng.choice([-1.0, 1.0], 10_000))
+    return np.concatenate([special, rand])
+
+
+@pytest.mark.parametrize("field,prec", [("XS", 4), ("XP", 6)])
+def test_native_sam_float_fields_equal_python(field, prec, native_libs):
+    """The native formatter's XS:f (four decimals) and XP:f (six) equal
+    Python's format(x, '.4f') / format(x, '.6f') on every value: the
+    integer path for finite |x| < 1e9, snprintf for the rest, which the
+    formatter counts.  One hit a read, through the real C call."""
+    x = _float_values()
+    n = len(x)
+    other = np.full(n, 0.5)
+    view, n_slow = tnative.format_sam_batch_view(
+        np.zeros((n, 4), np.int8), np.zeros((n, 4), np.int16),
+        np.full(n, 4, np.int32), ["r"] * n, ["c"],
+        np.arange(n, dtype=np.int32), np.zeros(n, np.int32),
+        np.zeros(n, np.int32), np.zeros(n, np.int64), np.zeros(n, np.int32),
+        [""] * n, np.zeros(n, np.int32), x if field == "XS" else other,
+        x if field == "XP" else other, np.zeros(n, np.uint8))
+    lines = bytes(view).decode().splitlines()
+    assert len(lines) == n
+    col = -2 if field == "XS" else -1
+    got = [line.split("\t")[col] for line in lines]
+    want = [f"{field}:f:" + format(v, f".{prec}f") for v in x.tolist()]
+    assert got == want
+    assert n_slow == int((~(np.abs(x) < 1e9)).sum()) > 0
+    assert got[14] == f"{field}:f:1000000000." + "0" * prec
+
+
+def _multimap_inputs(rng, B):
+    """format_sam_batch's arguments for a batch of multi-map shape: every
+    fourth read has 20 hits (its first primary, the rest flag 256), the
+    others one; both strands; weights a read's scores over
+    their sum, as the posterior gives them."""
+    L = 100
+    per = np.where(np.arange(B) % 4 == 0, 20, 1)
+    hit_read = np.repeat(np.arange(B), per).astype(np.int32)
+    Nh = len(hit_read)
+    first = np.r_[True, hit_read[1:] != hit_read[:-1]]
+    score = rng.integers(tconfig.SCORE_ONE // 2, tconfig.SCORE_ONE,
+                         Nh).astype(np.int32)
+    weight = score / np.bincount(hit_read, score)[hit_read]
+    return dict(
+        codes=rng.integers(0, 5, (B, L)).astype(np.int8),
+        quals=rng.integers(2, 41, (B, L)).astype(np.int16),
+        lens=np.full(B, L, np.int32),
+        names=[f"sim_{b}_multimap_sim_{b * 977}_+" for b in range(B)],
+        rnames=["multimap_sim"], hit_read=hit_read,
+        hit_flag=(rng.choice([0, 16], Nh) | np.where(first, 0, 256)
+                  ).astype(np.int32),
+        hit_rname=np.zeros(Nh, np.int32),
+        hit_pos=rng.integers(0, 46_000_000, Nh).astype(np.int64),
+        hit_mapq=np.zeros(Nh, np.int32), cigars=[""] * Nh,
+        hit_score=score, hit_xs=score / float(tconfig.SCORE_ONE),
+        hit_weight=weight, unmapped=np.zeros(B, np.uint8))
+
+
+def test_native_sam_output_buffer_is_reused_without_stale_bytes(
+        native_libs):
+    """The formatter writes into one per-thread buffer that is never
+    zero-filled: a first batch makes it, a larger one grows it, a smaller
+    one reuses it, and every batch's bytes are its own, equal to the JAX
+    package's snprintf formatter and to the bytes format_sam_batch
+    copies out.  The larger batch has the multi-map shape: 20 hits on a
+    quarter of the reads, forward and reverse."""
+    rng = np.random.default_rng(28)
+    batches = [_sam_inputs(rng, [f"q{k}" for k in range(6)], ["chrA"]),
+               _multimap_inputs(rng, 64),
+               _sam_inputs(rng, [f"read_{k}" for k in range(4)],
+                           ["chrA", "chrB"])]
+    tnative._out.__dict__.pop("buf", None)
+    bufs = []
+    for a in batches:
+        view, n_slow = tnative.format_sam_batch_view(**a)
+        got = bytes(view)
+        bufs.append(tnative._out.buf)
+        assert n_slow == 0
+        same(jnative.format_sam_batch(**a), got, "format_sam_batch view")
+        assert tnative.format_sam_batch(**a) == got
+        assert got.count(b"\n") == len(a["hit_read"]) + int(
+            a["unmapped"].sum())
+    assert bufs[1] is not bufs[0] and bufs[2] is bufs[1]
+    assert len(bufs[2]) >= 2 * len(bufs[0])
+    assert tnative._sam_batch_args(**batches[1])[1] > len(bufs[0])
+
+
+def test_native_sam_float_slow_counter(native_libs):
+    """The formatter's count of XS:f / XP:f fields written with snprintf:
+    0 on ordinary scores and weights, and on the batch of ~300-digit XS
+    values every XS field but the zero scores', once the batch fits."""
+    import ctypes
+    rng = np.random.default_rng(29)
+    _, n_slow = tnative.format_sam_batch_view(
+        **_sam_inputs(rng, [f"q{k}" for k in range(10)], ["chrA"]))
+    assert n_slow == 0
+    a = _sam_inputs(rng, [f"q{k}" for k in range(10)], ["chrA"],
+                    xs_scale=1e300)
+    args, _ = tnative._sam_batch_args(**a)
+    buf = ctypes.create_string_buffer(1 << 16)
+    assert tnative.get_lib().format_sam_batch(
+        *tnative._c_args(args), buf, 1 << 16) > 0
+    assert int(args[-1][0]) == int((a["hit_score"] != 0).sum()) > 0
+
+
 @pytest.mark.parametrize("final", [True, False])
 def test_native_fastq_parser(final, native_libs):
     with open(FASTQ, "rb") as f:
